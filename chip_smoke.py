@@ -3,11 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels, holds each against its plain PyTorch
-version at default-config shapes, then drives the DPVO main path (warm-up,
-motion probe, 12-iteration bootstrap, steady-state frames, terminate, TUM
-export) at configs/default.yaml and configs/fast.yaml on 384x512 synthetic
-frames with weights drawn from a seed, and checks a small run on the card
-against the same run on the CPU. Each phase prints one JSON line; the
+version at default-config shapes (the region kernels also on patches
+spread wide enough to take the spill path), drives the entry points of the
+kernels that no VO path runs (the split region pair, the Cholesky solve),
+then drives the DPVO main path (warm-up, motion probe, 12-iteration
+bootstrap, steady-state frames, terminate, TUM export) at
+configs/default.yaml and configs/fast.yaml, each unfused and with
+`PALLAS_FUSED: true`, on 384x512 synthetic frames with weights drawn from
+a seed, and checks small runs on the card (unfused, fused x32, fused x16)
+against the same runs on the CPU. Each phase prints one JSON line; the
 kernel summary and then the result line come last. Any failure exits
 non-zero without the result line; so does a machine without CUDA.
 """
@@ -29,6 +33,8 @@ import torch
 
 from wild_video_3d_reconstruction_torch.io import export
 from wild_video_3d_reconstruction_torch.ops import _native
+from wild_video_3d_reconstruction_torch.ops import chol as tchol
+from wild_video_3d_reconstruction_torch.ops import corr_region as tregion
 from wild_video_3d_reconstruction_torch.ops.corr import (
     corr_lookup, patch_corr_pyramid)
 from wild_video_3d_reconstruction_torch.ops.segment import (
@@ -61,11 +67,15 @@ def _deadline(signum, frame):
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 HT, WD = 384, 512
 E_KERNEL = 55296                 # default config's first edge tier (25%)
+E_FAST = 7168                    # fast config's steady live edges (~7 k)
 TOL_CORR_ABS = 1e-2
 TOL_RUNSUM_REL = 1e-5
 TOL_SLAM_TINY = 1e-2
+TOL_CHOL_RTOL, TOL_CHOL_ATOL = 2e-4, 2e-5   # the JAX package's chol test
+CHOL_DIMS = (54, 72, 256)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -120,13 +130,14 @@ def phase_build():
          ptxas=usage)
 
 
-def corr_inputs(gen):
+def corr_inputs(gen, M=384, E=E_KERNEL, spread=1.0):
     """Default-config shapes: pmem=36 ring slots of M=384 patches, /4 and
     /16 maps of a 384x512 frame, E_KERNEL edges whose 3x3 patches sit at
-    random centres with a random flow (some reach past the border)."""
-    pmem, M = 36, 384
+    random centres with a random flow (some reach past the border). The
+    patch pixels lie `spread` px apart (1: every window fits the region
+    kernels' regions; 6: a 12 px spread, past the regions)."""
+    pmem = 36
     h4, w4 = HT // 4, WD // 4
-    E = E_KERNEL
 
     def randn(*shape):
         return (0.25 * torch.randn(*shape, generator=gen)).to(
@@ -138,7 +149,7 @@ def corr_inputs(gen):
     cx = torch.rand(E, generator=gen) * (w4 - 2) + 1
     cy = torch.rand(E, generator=gen) * (h4 - 2) + 1
     flow = 4.0 * torch.randn(E, 2, generator=gen)
-    off = torch.arange(3.0) - 1
+    off = spread * (torch.arange(3.0) - 1)
     x = (cx + flow[:, 0])[:, None, None] + off[None, None, :]
     y = (cy + flow[:, 1])[:, None, None] + off[None, :, None]
     coords = torch.stack([x.expand(E, 3, 3), y.expand(E, 3, 3)], -1)
@@ -147,6 +158,120 @@ def corr_inputs(gen):
     valid = torch.rand(E, generator=gen) < 0.95
     return (gmap, fmap1, fmap2, coords.to(DEV).contiguous(),
             kk.to(DEV, torch.int32), jj.to(DEV, torch.int32), valid.to(DEV))
+
+
+def window_einsum_ms(gmap, pyr, coords, kk, jj):
+    """Yardstick for the correlation kernels: the plain version's einsum
+    alone, over windows gathered beforehand in the feature dtype (one
+    level at a time)."""
+    E = coords.shape[0]
+    lib_ms = 0.0
+    for fmap, s in zip(pyr, (1, 4)):
+        F_, H, W, C = fmap.shape
+        c = coords / s
+        off = torch.arange(8, device=DEV) - 3
+        ys = (torch.floor(c[..., 1]).long()[..., None] + off).clamp(0, H - 1)
+        xs = (torch.floor(c[..., 0]).long()[..., None] + off).clamp(0, W - 1)
+        flat = (jj.long() * H * W)[:, None, None, None, None] + \
+            ys[..., :, None] * W + xs[..., None, :]
+        win = fmap.reshape(-1, C)[flat.reshape(-1)].reshape(E, 9, 64, C)
+        g = gmap[kk.long()].permute(0, 2, 3, 1).reshape(E, 9, C)
+        lib_ms += time_ms(lambda: torch.einsum("epwc,epc->epw", win, g),
+                          reps=5, warmup=1)
+        del win, flat
+    torch.cuda.empty_cache()
+    return lib_ms
+
+
+def map_positions(fmap, jj, y0, x0, h, w):
+    """Rectangles of h x w positions of fmap [F, H, W, C] at (jj, y0, x0):
+    (distinct in-map positions they cover, in-map positions summed over
+    the rectangles)."""
+    F, H, W, _ = fmap.shape
+    dev = fmap.device
+    ys = y0[:, None] + torch.arange(h, device=dev)
+    xs = x0[:, None] + torch.arange(w, device=dev)
+    inb = ((ys >= 0) & (ys < H))[:, :, None] & \
+        ((xs >= 0) & (xs < W))[:, None, :]
+    flat = (jj.long() * (H * W))[:, None, None] + \
+        ys.clamp(0, H - 1)[:, :, None] * W + xs.clamp(0, W - 1)[:, None, :]
+    seen = torch.zeros(F * H * W, dtype=torch.bool, device=dev)
+    seen[flat[inb]] = True
+    return int(seen.sum()), int(inb.sum())
+
+
+def level_geometry(fmap, coords, s, valid):
+    """The x16 region geometry (`corr_region.geometry`) of the valid edges
+    at the level of scale s (its window starts hold for either variant)."""
+    _, H, W, _ = fmap.shape
+    return tregion.geometry(coords[valid] / s, "x16", H, W)
+
+
+def corr_work(gmap, pyr, coords, kk, jj, valid, *outs):
+    """What the correlation function needs on these inputs: (bytes, FLOPs).
+    Bytes: the features of the valid edges' patches, the in-map positions
+    of their 8x8 windows at both levels (each position once), coords, kk,
+    jj and valid, and the outputs. FLOPs: the products over the in-map
+    window positions."""
+    v = valid.bool()
+    es = gmap.element_size()
+    n_bytes = kk[v].unique().numel() * gmap[0].numel() * es
+    flops = 0.0
+    for fmap, s in zip(pyr, (1, 4)):
+        ys, xs, *_ = level_geometry(fmap, coords, s, v)
+        n_pos, n_prod = map_positions(fmap, jj[v].repeat_interleave(9),
+                                      ys.reshape(-1), xs.reshape(-1), 8, 8)
+        n_bytes += n_pos * fmap.shape[-1] * es
+        flops += 2.0 * n_prod * fmap.shape[-1]
+    return n_bytes + nbytes(coords, kk, jj, valid, *outs), flops
+
+
+def surfaces_work(gmap, pyr, coords, kk, jj, valid, surf):
+    """The x16 surfaces' needs: (bytes, FLOPs). The patch features of the
+    valid edges, the in-map positions of their 16x16 regions (each once),
+    coords/kk/jj/valid and the surfaces; 9 products per in-map region
+    position."""
+    v = valid.bool()
+    es = gmap.element_size()
+    n_bytes = kk[v].unique().numel() * gmap[0].numel() * es
+    flops = 0.0
+    for fmap, s in zip(pyr, (1, 4)):
+        _, _, oy, ox, _, _ = level_geometry(fmap, coords, s, v)
+        n_pos, n_prod = map_positions(fmap, jj[v], oy, ox, tregion.RH,
+                                      tregion.REGION_W["x16"])
+        n_bytes += n_pos * fmap.shape[-1] * es
+        flops += 2.0 * 9 * n_prod * fmap.shape[-1]
+    return n_bytes + nbytes(coords, kk, jj, valid, surf), flops
+
+
+def extract_work(gmap, pyr, coords, kk, jj, valid, surf, *outs):
+    """The x16 extract's needs: (bytes, FLOPs). For each valid edge, level
+    and pixel: the 8x8 fp32 surface window if it fits the region; if it
+    spills, the pixel's features and the in-map positions of its window in
+    the map (each once). Plus coords/kk/jj/valid and the outputs. FLOPs:
+    the blend (7 per output value) and the spilled pixels' products."""
+    v = valid.bool()
+    es = gmap.element_size()
+    n_bytes = nbytes(coords, kk, jj, valid, *outs)
+    flops = 2.0 * int(v.sum()) * 9 * 49 * 7
+    for fmap, s in zip(pyr, (1, 4)):
+        ys, xs, _, _, fits, spill = level_geometry(fmap, coords, s, v)
+        n_bytes += int(fits.sum()) * 64 * surf.element_size()
+        ei, pi = spill.nonzero(as_tuple=True)
+        if ei.numel():
+            n_pos, n_prod = map_positions(fmap, jj[v][ei], ys[ei, pi],
+                                          xs[ei, pi], 8, 8)
+            n_g = (kk[v][ei].long() * 9 + pi).unique().numel()
+            n_bytes += (n_pos + n_g) * fmap.shape[-1] * es
+            flops += 2.0 * n_prod * fmap.shape[-1]
+    return n_bytes, flops
+
+
+def bound(n_bytes, ops, peak):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_corr(gen):
@@ -164,36 +289,15 @@ def kernel_corr(gen):
     plain_ms = time_ms(lambda: patch_corr_pyramid(
         gmap, pyr, coords, kk, jj, valid=valid, chunk=4096), reps=3,
         warmup=1)
-    # yardstick: the plain version's einsum alone, over windows gathered
-    # beforehand in the feature dtype (one level at a time)
-    lib_ms = 0.0
-    for fmap, s in zip(pyr, (1, 4)):
-        F_, H, W, C = fmap.shape
-        c = coords / s
-        off = torch.arange(8, device=DEV) - 3
-        ys = (torch.floor(c[..., 1]).long()[..., None] + off).clamp(0, H - 1)
-        xs = (torch.floor(c[..., 0]).long()[..., None] + off).clamp(0, W - 1)
-        flat = (jj.long() * H * W)[:, None, None, None, None] + \
-            ys[..., :, None] * W + xs[..., None, :]
-        win = fmap.reshape(-1, C)[flat.reshape(-1)].reshape(E, 9, 64, C)
-        g = gmap[kk.long()].permute(0, 2, 3, 1).reshape(E, 9, C)
-        lib_ms += time_ms(lambda: torch.einsum("epwc,epc->epw", win, g),
-                          reps=5, warmup=1)
-        del win, flat
-    torch.cuda.empty_cache()
-    n_bytes = nbytes(gmap, fmap1, fmap2, coords, kk, jj, valid, out)
-    flops = 2.0 * E * 2 * 9 * 64 * 128
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    lib_ms = window_einsum_ms(gmap, pyr, coords, kk, jj)
+    n_bytes, flops = corr_work(gmap, pyr, coords, kk, jj, valid, out)
     row = dict(
         name="corr_pyramid", route="cuda",
         source="wild_video_3d_reconstruction_torch/csrc/corr.cu",
         replaces="wild_video_3d_reconstruction_tpu/ops/pallas_corr.py:83, "
                  "wild_video_3d_reconstruction_tpu/ops/pallas_corr.py:123",
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=lib_ms)
+        **bound(n_bytes, flops, BF16_FLOPS), library_ms=lib_ms)
     emit("kernels", E=E, rel_err=rel, tol_abs=TOL_CORR_ABS,
          finite=finite, bytes=n_bytes, flops=flops, **row)
     if not finite or not err <= TOL_CORR_ABS:
@@ -234,22 +338,205 @@ def kernel_runsum(gen):
     acc = torch.zeros_like(fes)
     lib_ms = time_ms(lambda: acc.zero_().index_add_(0, run, fes))
     n_bytes = nbytes(fes, seg, out)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = E * D / 67e12 * 1e3      # fp32 adds outside the tensor cores
     row = dict(
         name="runsum", route="cuda",
         source="wild_video_3d_reconstruction_torch/csrc/runsum.cu",
         replaces="wild_video_3d_reconstruction_tpu/ops/pallas_segsum.py:38",
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=lib_ms)
+        # fp32 adds outside the tensor cores
+        **bound(n_bytes, E * D, FP32_FLOPS), library_ms=lib_ms)
     emit("kernels", E=E, D=D, rel_err=rel, tol_rel=TOL_RUNSUM_REL,
          finite=finite, bytes=n_bytes, **row)
     if not finite or not rel <= TOL_RUNSUM_REL:
         fail(f"runsum kernel disagrees with its plain version: relative "
              f"err {rel} > {TOL_RUNSUM_REL}")
     return row
+
+
+REGION_SOURCE = "wild_video_3d_reconstruction_torch/csrc/corr_region.cu"
+PALLAS_CORR = "wild_video_3d_reconstruction_tpu/ops/pallas_corr.py"
+
+
+def kernel_region_fused(gen, variant, M=384, E=E_KERNEL, shapes="default"):
+    """The fused region kernel of `variant` against its plain version, on
+    compact patches (no pixel spills) and on patches spread 12 px (the
+    spill path). Returns the row of the compact run."""
+    name = f"corr_region_fused_{variant}"
+    row = None
+    for spread in (1.0, 6.0):
+        gmap, fmap1, fmap2, coords, kk, jj, valid = corr_inputs(
+            gen, M=M, E=E, spread=spread)
+        pyr = (fmap1, fmap2)
+        args = (gmap, pyr, coords, kk, jj, valid, variant)
+        out, spill = tregion.region_corr_fused(*args)
+        torch.cuda.synchronize()
+        ref, ref_spill = tregion.region_corr_plain(*args)
+        err = (out - ref).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        n_spill = int(spill.sum())
+        same_spill = bool(torch.equal(spill, ref_spill))
+        ms = time_ms(lambda: tregion.region_corr_fused(*args))
+        plain_ms = time_ms(lambda: tregion.region_corr_plain(*args), reps=3,
+                           warmup=1)
+        lib_ms = window_einsum_ms(gmap, pyr, coords, kk, jj) \
+            if spread == 1.0 else None
+        n_bytes, flops = corr_work(gmap, pyr, coords, kk, jj, valid, out,
+                                   spill)
+        r = dict(name=name, route="cuda", source=REGION_SOURCE,
+                 replaces=f"{PALLAS_CORR}:340" if variant == "x32"
+                 else f"{PALLAS_CORR}:157",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 **bound(n_bytes, flops, BF16_FLOPS),
+                 library_ms=lib_ms)
+        emit("kernels", shapes=shapes, E=E, patches_per_frame=M,
+             pixel_spacing_px=spread, spill_edges=n_spill,
+             spill_flags_match_plain=same_spill, tol_abs=TOL_CORR_ABS,
+             finite=finite, bytes=n_bytes, flops=flops, **r)
+        if not finite or not err <= TOL_CORR_ABS or not same_spill:
+            fail(f"{name} disagrees with its plain version: max abs err "
+                 f"{err} (tol {TOL_CORR_ABS}), spill flags equal: "
+                 f"{same_spill}")
+        if (n_spill > 0) != (spread > 1.0):
+            fail(f"{name}: {n_spill} spilled edges at {spread} px spacing")
+        row = row or r
+        del out, ref, spill, ref_spill
+        torch.cuda.empty_cache()
+    return row
+
+
+def kernel_region_split(gen):
+    """The split x16 pair: the surfaces kernel against the plain surfaces,
+    the extract kernel against the plain extract of the same surfaces, and
+    the pair against the fused plain version; compact and spread patches.
+    Returns the rows of the compact run."""
+    rows = None
+    for spread in (1.0, 6.0):
+        gmap, fmap1, fmap2, coords, kk, jj, valid = corr_inputs(
+            gen, spread=spread)
+        pyr = (fmap1, fmap2)
+        args = (gmap, pyr, coords, kk, jj, valid)
+        surf = tregion.region_surfaces(*args)
+        out, spill = tregion.region_extract(surf, *args)
+        torch.cuda.synchronize()
+        err_s = (surf - tregion.region_surfaces_plain(*args)).abs().max()
+        ref, ref_spill = tregion.region_extract_plain(surf, *args)
+        err_x = (out - ref).abs().max().item()
+        full, _ = tregion.region_corr_plain(*args, "x16")
+        err_full = (out - full).abs().max().item()
+        err_s = err_s.item()
+        del ref, full
+        n_spill = int(spill.sum())
+        same_spill = bool(torch.equal(spill, ref_spill))
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(surf).all())
+        ms_s = time_ms(lambda: tregion.region_surfaces(*args))
+        ms_x = time_ms(lambda: tregion.region_extract(surf, *args))
+        torch.cuda.empty_cache()
+        plain_s = time_ms(lambda: tregion.region_surfaces_plain(*args),
+                          reps=3, warmup=1)
+        plain_x = time_ms(lambda: tregion.region_extract_plain(surf, *args),
+                          reps=3, warmup=1)
+        b_s, flops_s = surfaces_work(*args, surf)
+        b_x, flops_x = extract_work(*args, surf, out, spill)
+        r_s = dict(name="corr_region_surfaces", route="cuda",
+                   source=REGION_SOURCE, replaces=f"{PALLAS_CORR}:123",
+                   max_abs_err=err_s, ms=ms_s, plain_ms=plain_s,
+                   **bound(b_s, flops_s, BF16_FLOPS), library_ms=None)
+        r_x = dict(name="corr_region_extract", route="cuda",
+                   source=REGION_SOURCE, replaces=f"{PALLAS_CORR}:230",
+                   max_abs_err=err_x, ms=ms_x, plain_ms=plain_x,
+                   **bound(b_x, flops_x, FP32_FLOPS), library_ms=None)
+        for r, b, f in ((r_s, b_s, flops_s), (r_x, b_x, flops_x)):
+            emit("kernels", shapes="default", E=E_KERNEL,
+                 pixel_spacing_px=spread, spill_edges=n_spill,
+                 spill_flags_match_plain=same_spill, tol_abs=TOL_CORR_ABS,
+                 pair_vs_fused_plain_max_abs_err=err_full, finite=finite,
+                 bytes=b, flops=f, surface_bytes=nbytes(surf), **r)
+        if not finite or not max(err_s, err_x, err_full) <= TOL_CORR_ABS \
+                or not same_spill:
+            fail(f"split region pair disagrees with its plain version: "
+                 f"surfaces {err_s}, extract {err_x}, pair {err_full} (tol "
+                 f"{TOL_CORR_ABS}), spill flags equal: {same_spill}")
+        if (n_spill > 0) != (spread > 1.0):
+            fail(f"split region pair: {n_spill} spilled edges at {spread} px "
+                 "spacing")
+        rows = rows or [r_s, r_x]
+        del surf, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def spd_system(gen, D):
+    A = torch.randn(D, D, generator=gen)
+    S = A @ A.T + D * torch.eye(D)
+    return S.to(DEV), torch.randn(D, generator=gen).to(DEV)
+
+
+def kernel_chol(gen):
+    """The Cholesky kernel against cholesky_ex + cholesky_solve at D = 54,
+    72 (the [6W, 6W] BA Schur system of the JAX package's note) and 256,
+    NaN on S = -I; beside it torch.linalg.solve. Returns the D = 72 row."""
+    row = None
+    for D in CHOL_DIMS:
+        S, y = spd_system(gen, D)
+        x = tchol.chol_solve_small(S, y)
+        torch.cuda.synchronize()
+        ref = tchol.chol_solve_small_plain(S, y)
+        err = (x - ref).abs().max().item()
+        close = bool(torch.allclose(x, ref, rtol=TOL_CHOL_RTOL,
+                                    atol=TOL_CHOL_ATOL))
+        nan_ok = bool(torch.isnan(tchol.chol_solve_small(
+            -torch.eye(D, device=DEV), y)).all())
+        ms = time_ms(lambda: tchol.chol_solve_small(S, y))
+        plain_ms = time_ms(lambda: tchol.chol_solve_small_plain(S, y))
+        lib_ms = time_ms(lambda: torch.linalg.solve(S, y))
+        flops = D ** 3 / 3 + 2 * D ** 2
+        r = dict(name="chol_solve", route="cuda",
+                 source="wild_video_3d_reconstruction_torch/csrc/chol.cu",
+                 replaces="wild_video_3d_reconstruction_tpu/ops/"
+                          "pallas_chol.py:37",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 **bound(nbytes(S, y, x), flops, FP32_FLOPS),
+                 library_ms=lib_ms)
+        emit("kernels", D=D, rtol=TOL_CHOL_RTOL, atol=TOL_CHOL_ATOL,
+             within_tol=close, nan_on_minus_identity=nan_ok,
+             plain="cholesky_ex + cholesky_solve",
+             library="torch.linalg.solve", **r)
+        if not close or not nan_ok:
+            fail(f"chol kernel at D={D}: max abs err {err} (rtol "
+                 f"{TOL_CHOL_RTOL}, atol {TOL_CHOL_ATOL}), NaN on -I: "
+                 f"{nan_ok}")
+        if D == 72:
+            row = r
+    return row
+
+
+def phase_entry_points(gen):
+    """No VO path runs the split region pair or the Cholesky solve (the
+    JAX package reaches them only through its op entry points). Drive
+    their entry points once at the shapes above, with the counts at zero,
+    and check the result."""
+    gmap, fmap1, fmap2, coords, kk, jj, valid = corr_inputs(gen)
+    args = (gmap, (fmap1, fmap2), coords, kk, jj, valid)
+    S, y = spd_system(gen, 72)
+    torch.cuda.synchronize()
+    _native.reset_launch_counts()
+    out, n_spill = tregion.region_corr_pyramid(
+        *args, "x16", fused=False, extract="kernel", return_spill_count=True)
+    x = tchol.chol_solve_small(S, y)
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    resid = ((S @ x - y).norm() / y.norm()).item()
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(x).all())
+    emit("entry_points", corr="region_corr_pyramid(variant='x16', "
+         "fused=False, extract='kernel')", corr_shape=list(out.shape),
+         spill_edges=n_spill, chol="chol_solve_small", D=72,
+         relative_residual=resid, finite=finite, launches=launches)
+    if not finite or not resid < 1e-4 or out.shape != (E_KERNEL, 882):
+        fail("entry points: non-finite result or residual too large")
+    for k in ("corr_region_surfaces", "corr_region_extract", "chol_solve"):
+        if launches[k] <= 0:
+            fail(f"entry points: kernel {k} was not launched")
+    return launches
 
 
 def synthetic_frames(n, seed=0, ht=None, wd=None):
@@ -261,10 +548,11 @@ def synthetic_frames(n, seed=0, ht=None, wd=None):
             for t in range(n)]
 
 
-def phase_slam(name, config, n_frames):
+def phase_slam(name, config, n_frames, expect, fused=False):
+    """One VO run; fails unless each kernel in `expect` was launched."""
     # MOTION_PROBE_THRESH=0: the motion probe runs on every warm-up frame
     # but accepts it (random weights give no meaningful flow to gate on)
-    cfg = load_config(config, MOTION_PROBE_THRESH=0.0)
+    cfg = load_config(config, MOTION_PROBE_THRESH=0.0, PALLAS_FUSED=fused)
     frames = synthetic_frames(n_frames)
     intr = np.array([320.0, 320.0, WD / 2, HT / 2])
     slam = DPVO(cfg, None, HT, WD, seed=0, device="cuda")
@@ -294,7 +582,8 @@ def phase_slam(name, config, n_frames):
     per_frame = {k: (launches[k] - steady_launch[k]) / n_steady
                  for k in launches}
     finite = bool(np.isfinite(poses).all())
-    emit(name, config=config, frames=n_frames, HxW=[HT, WD],
+    emit(name, config=config, fused=fused, variant=cfg.PALLAS_VARIANT,
+         frames=n_frames, HxW=[HT, WD],
          patches=cfg.PATCHES_PER_FRAME, initialized=slam.is_initialized,
          keyframes=slam.n_host, n_edges=slam.state.n_edges,
          max_n_edges=max_edges, steady_frames=n_steady,
@@ -307,34 +596,46 @@ def phase_slam(name, config, n_frames):
     if not finite or poses.shape != (n_frames, 7) or \
             back.shape != (n_frames, 7):
         fail(f"{name}: trajectory not finite or of the wrong shape")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in expect:
+        if launches[k] <= 0:
             fail(f"{name}: kernel {k} was not launched on the main path")
     return launches
 
 
-def phase_slam_tiny():
+def phase_slam_tiny(fused=False, variant="x32", corr_kernel="corr_pyramid"):
     """The VO slice at a tiny size in fp32 on the card (kernels) and on
-    the CPU (plain versions), same seed and frames: trajectories agree."""
+    the CPU (plain versions), same seed and frames: trajectories agree.
+    At 48x64 the /4 map is 3x4, smaller than any region: the region
+    kernels' map-edge case."""
     cfg = DPVOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, REMOVAL_WINDOW=6,
                      OPTIMIZATION_WINDOW=4, PATCH_LIFETIME=3,
                      KEYFRAME_INDEX=2, MEM=12, GRADIENT_BIAS=False,
-                     MIXED_PRECISION=False, MOTION_PROBE_THRESH=-1.0)
+                     MIXED_PRECISION=False, MOTION_PROBE_THRESH=-1.0,
+                     PALLAS_FUSED=fused, PALLAS_VARIANT=variant)
     ht, wd = 48, 64
     frames = synthetic_frames(14, ht=ht, wd=wd)
     intr = np.array([40.0, 40.0, wd / 2, ht / 2])
     out = {}
     for dev in ("cuda", "cpu"):
+        _native.reset_launch_counts()
         slam = DPVO(cfg, None, ht, wd, seed=0, device=dev)
         for t, img in enumerate(frames):
             slam(t, img, intr)
-        out[dev] = (slam.terminate()[0], sorted(slam.delta))
+        out[dev] = (slam.terminate()[0], sorted(slam.delta),
+                    _native.LAUNCHES[corr_kernel])
     diff = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
     same_kf = out["cuda"][1] == out["cpu"][1]
-    emit("slam_tiny_vs_cpu", frames=len(frames), max_abs_pose_diff=diff,
-         tol=TOL_SLAM_TINY, same_keyframe_drops=same_kf)
+    emit("slam_tiny_vs_cpu", fused=fused, variant=variant,
+         frames=len(frames), max_abs_pose_diff=diff, tol=TOL_SLAM_TINY,
+         same_keyframe_drops=same_kf, corr_kernel=corr_kernel,
+         corr_launches_card=out["cuda"][2], corr_launches_cpu=out["cpu"][2])
     if not same_kf or not diff <= TOL_SLAM_TINY:
-        fail("tiny slice on the card disagrees with the CPU run")
+        fail(f"tiny slice (fused={fused}, {variant}) on the card disagrees "
+             "with the CPU run")
+    if out["cuda"][2] <= 0 or out["cpu"][2] != 0:
+        fail(f"tiny slice (fused={fused}, {variant}): {corr_kernel} "
+             f"launched {out['cuda'][2]} times on the card and "
+             f"{out['cpu'][2]} on the CPU")
 
 
 def main():
@@ -348,13 +649,28 @@ def main():
     phase_env()
     phase_build()
     gen = torch.Generator().manual_seed(0)
-    rows = [kernel_corr(gen), kernel_runsum(gen)]
+    rows = [kernel_corr(gen), kernel_runsum(gen),
+            kernel_region_fused(gen, "x32"),
+            kernel_region_fused(gen, "x16"),
+            *kernel_region_split(gen), kernel_chol(gen)]
+    kernel_region_fused(gen, "x32", M=48, E=E_FAST, shapes="fast")
     phase_slam_tiny()
-    total = {}
-    for name, config, n in (("slam_default", "configs/default.yaml", 40),
-                            ("slam_fast", "configs/fast.yaml", 24)):
-        for k, v in phase_slam(name, config, n).items():
-            total[k] = total.get(k, 0) + v
+    phase_slam_tiny(True, "x32", "corr_region_fused_x32")
+    phase_slam_tiny(True, "x16", "corr_region_fused_x16")
+    total = dict.fromkeys(_native.LAUNCHES, 0)
+    for k, v in phase_entry_points(gen).items():
+        total[k] += v
+    for name, config, n, fused, corr in (
+            ("slam_default", "configs/default.yaml", 40, False,
+             "corr_pyramid"),
+            ("slam_fast", "configs/fast.yaml", 24, False, "corr_pyramid"),
+            ("slam_default_fused", "configs/default.yaml", 40, True,
+             "corr_region_fused_x16"),
+            ("slam_fast_fused", "configs/fast.yaml", 24, True,
+             "corr_region_fused_x32")):
+        for k, v in phase_slam(name, config, n, (corr, "runsum"),
+                               fused).items():
+            total[k] += v
     for row in rows:
         row["launches"] = total[row["name"]]
     signal.alarm(0)

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from wild_video_3d_reconstruction_torch.ops import _native
+from wild_video_3d_reconstruction_torch.ops import chol as tchol
 from wild_video_3d_reconstruction_torch.ops import corr as tcorr
+from wild_video_3d_reconstruction_torch.ops import corr_region as tregion
 from wild_video_3d_reconstruction_torch.ops import segment as tseg
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +101,123 @@ def test_runsum_kernel_matches_plain(cuda_device, tail):
                         device=cuda_device)
     first[run.flip(0)] = torch.arange(E - 1, -1, -1, device=cuda_device)
     assert torch.equal(out, out[first[run]])
+
+
+def _to_dev(case, dev, dtype):
+    gmap, fmaps, coords, kk, jj, valid = case
+    return (torch.from_numpy(gmap).to(dev, dtype),
+            tuple(torch.from_numpy(f).to(dev, dtype) for f in fmaps),
+            *(torch.from_numpy(a).to(dev) for a in (coords, kk, jj, valid)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("variant", ["x32", "x16"])
+@pytest.mark.parametrize("spread", [1.0, 12.0])
+def test_region_fused_kernel_matches_plain(cuda_device, dtype, variant,
+                                           spread):
+    """csrc/corr_region.cu fused (#4 x32, #5 x16) against the plain region
+    version and the exact oracle, within 1e-2 absolute (fp32 sums of 128
+    products, other order), with and without spilled pixels; the spill
+    flags agree exactly."""
+    g, pyr, c, k, j, v = _to_dev(corr_case(3, spread=spread), cuda_device,
+                                 dtype)
+    key = f"corr_region_fused_{variant}"
+    n0 = _native.LAUNCHES[key]
+    out, spill = tregion.region_corr_fused(g, pyr, c, k, j, v, variant)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES[key] == n0 + 1
+    ref, ref_spill = tregion.region_corr_plain(g, pyr, c, k, j, v, variant)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-2)
+    assert torch.equal(spill, ref_spill)
+    assert bool(spill.any()) == (spread > 8)
+    exact = tcorr.patch_corr_pyramid(g, pyr, c, k, j, valid=v)
+    torch.testing.assert_close(out, exact, rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_region_split_kernels_match_plain(cuda_device, dtype):
+    """The split x16 pair (#6): surfaces kernel against the plain
+    surfaces, extract kernel against the plain extract on the same
+    surfaces, both within 1e-2 absolute; spilled edges included."""
+    g, pyr, c, k, j, v = _to_dev(corr_case(4, spread=12.0), cuda_device,
+                                 dtype)
+    n0 = (_native.LAUNCHES["corr_region_surfaces"],
+          _native.LAUNCHES["corr_region_extract"])
+    surf = tregion.region_surfaces(g, pyr, c, k, j, v)
+    out, spill = tregion.region_extract(surf, g, pyr, c, k, j, v)
+    torch.cuda.synchronize()
+    assert (_native.LAUNCHES["corr_region_surfaces"],
+            _native.LAUNCHES["corr_region_extract"]) == (n0[0] + 1, n0[1] + 1)
+    ref_surf = tregion.region_surfaces_plain(g, pyr, c, k, j, v)
+    torch.testing.assert_close(surf, ref_surf, rtol=0, atol=1e-2)
+    ref, ref_spill = tregion.region_extract_plain(surf, g, pyr, c, k, j, v)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-2)
+    assert torch.equal(spill, ref_spill) and bool(spill.any())
+
+
+def test_region_map_smaller_than_region(cuda_device):
+    """A 3x4 level-2 map (the tiny slice's) is smaller than either region:
+    zeros off the map, exact against the oracle in fp32."""
+    g, pyr, c, k, j, v = _to_dev(corr_case(5, E=512, H=12, W=16, spread=3.0),
+                                 cuda_device, torch.float32)
+    exact = tcorr.patch_corr_pyramid(g, pyr, c, k, j, valid=v)
+    for variant in ("x32", "x16"):
+        out = tregion.region_corr_pyramid(g, pyr, c, k, j, v, variant)
+        torch.testing.assert_close(out, exact, rtol=0, atol=1e-4)
+    out = tregion.region_corr_pyramid(g, pyr, c, k, j, v, "x16", fused=False,
+                                      extract="kernel")
+    torch.testing.assert_close(out, exact, rtol=0, atol=1e-4)
+
+
+def test_region_kernels_reject_what_they_cannot_take(cuda_device):
+    g, pyr, c, k, j, v = _to_dev(corr_case(1, E=64, C=64), cuda_device,
+                                 torch.float32)
+    with pytest.raises(ValueError):              # 64 channels, not 128
+        tregion.region_corr_pyramid(g, pyr, c, k, j, v, "x16")
+    g, pyr, c, k, j, v = _to_dev(corr_case(1, E=64), cuda_device,
+                                 torch.float32)
+    with pytest.raises(ValueError):              # coords on the CPU
+        tregion.region_corr_pyramid(g, pyr, c.cpu(), k, j, v, "x32")
+    with pytest.raises(ValueError):              # surfaces on the CPU
+        tregion.region_extract(torch.zeros(64, 2, 9, 16, 16), g, pyr, c, k,
+                               j, v)
+
+
+@pytest.mark.parametrize("d", [8, 54, 72, 128, 256])
+def test_chol_kernel_matches_plain(cuda_device, d):
+    """csrc/chol.cu against cholesky_ex + cholesky_solve on the card, with
+    the tolerance of the JAX package's chol test (rtol 2e-4, atol 2e-5)."""
+    rng = np.random.default_rng(d)
+    A = rng.normal(size=(d, d)).astype(np.float32)
+    S = torch.from_numpy(A @ A.T + d * np.eye(d, dtype=np.float32))
+    y = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32))
+    S, y = S.to(cuda_device), y.to(cuda_device)
+    n0 = _native.LAUNCHES["chol_solve"]
+    x = tchol.chol_solve_small(S, y)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["chol_solve"] == n0 + 1
+    torch.testing.assert_close(x, tchol.chol_solve_small_plain(S, y),
+                               rtol=2e-4, atol=2e-5)
+    bad = tchol.chol_solve_small(-torch.eye(d, device=cuda_device), y)
+    assert torch.isnan(bad).all()
+
+
+def test_chol_kernel_rejects_what_it_cannot_take(cuda_device):
+    with pytest.raises(ValueError):              # D > 256
+        tchol.chol_solve_small(torch.eye(257, device=cuda_device),
+                               torch.ones(257, device=cuda_device))
+    with pytest.raises(ValueError):              # y on the CPU
+        tchol.chol_solve_small(torch.eye(8, device=cuda_device),
+                               torch.ones(8))
+
+
+@pytest.mark.parametrize("kind", ["minus-identity", "zero", "last-pivot"])
+def test_chol_kernel_not_spd_gives_nan(cuda_device, kind):
+    """A non-positive pivot anywhere makes all of x NaN, as in the plain
+    version."""
+    S = {"minus-identity": -torch.eye(16), "zero": torch.zeros(16, 16),
+         "last-pivot": torch.diag(torch.cat([torch.ones(15),
+                                             -torch.ones(1)]))}[kind]
+    x = tchol.chol_solve_small(S.to(cuda_device),
+                               torch.ones(16, device=cuda_device))
+    assert torch.isnan(x).all()

@@ -15,9 +15,19 @@ identical keyframe decisions and edge tables; single steps on a captured
 state within 1e-4. The port's whole-slice runs use one CPU thread: its
 reductions then sum in one order whatever the machine's core count (with
 3 threads the same comparison measured 5.3e-3).
+
+The port's runs on the fused-correlation route (`PALLAS_FUSED: true`, x32
+and x16 region kernels' plain versions) are held against the same JAX run:
+the JAX package computes the correlation with its exact `ops/corr.py` on
+the CPU (and with PALLAS_CORR off) whatever PALLAS_FUSED says, and the
+port's region route is exact too. Same 1e-2 on the trajectories and the
+same keyframe decisions; against the port's own unfused run over the first
+12 frames within 1e-3 (the two routes sum the same fp32 products in
+another order; later frames cross the BA's clamps at other points).
 """
 
 import contextlib
+import copy
 import dataclasses
 
 import jax
@@ -56,6 +66,8 @@ TINY = dict(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, REMOVAL_WINDOW=6,
             MOTION_PROBE_THRESH=-1.0)
 TOL_TRAJ = 1e-2
 TOL_STEP = 1e-4
+N_PREFIX = 12         # frames of the fused-vs-unfused route comparison
+TOL_ROUTES = 1e-3
 
 
 @contextlib.contextmanager
@@ -106,6 +118,12 @@ def to_port_state(snap, cfg):
     return st
 
 
+def terminated_copy(ts):
+    """Trajectory and keyframe drops of a copy of `ts` terminated now."""
+    early = copy.deepcopy(ts)
+    return early.terminate()[0], sorted(early.delta)
+
+
 @pytest.fixture(scope="module")
 def run():
     jcfg, tcfg = JConfig(**TINY), TConfig(**TINY)
@@ -123,6 +141,8 @@ def run():
         js(t, img, intrinsics=INTR)
         with one_thread():
             ts(t, img, INTR, coords=draws[t][0], depths=draws[t][1])
+            if t + 1 == N_PREFIX:
+                snaps["prefix"] = terminated_copy(ts)
         if t == 8:        # the last warm-up frame before the bootstrap
             snaps["warmup"] = (snapshot(js.state), dataclasses.replace(
                 ts.state, ii=ts.state.ii.clone(), jj=ts.state.jj.clone(),
@@ -156,6 +176,43 @@ def test_slice_trajectory_matches_jax(run):
     assert np.isfinite(tp).all()
     np.testing.assert_allclose(tp, jp, atol=TOL_TRAJ, rtol=0)
     np.testing.assert_array_equal(run["tt"], run["jt"])
+
+
+@pytest.fixture(scope="module")
+def fused_runs(run):
+    """The port's DPVO on the fused-correlation route, x32 and x16, over
+    the frames and draws of `run`, with a copy terminated after N_PREFIX
+    frames."""
+    out = {}
+    for variant in ("x32", "x16"):
+        cfg = TConfig(**TINY, PALLAS_FUSED=True, PALLAS_VARIANT=variant)
+        ts = TDPVO(cfg, jax.tree.map(np.asarray, run["params"]), HT, WD,
+                   seed=0, device="cpu")
+        with one_thread():
+            for t, img in enumerate(run["frames"]):
+                ts(t, img, INTR, coords=run["draws"][t][0],
+                   depths=run["draws"][t][1])
+                if t + 1 == N_PREFIX:
+                    prefix = terminated_copy(ts)
+        out[variant] = (ts.terminate()[0], sorted(ts.delta), prefix)
+    return out
+
+
+@pytest.mark.parametrize("variant", ["x32", "x16"])
+def test_fused_slice_matches_jax(run, fused_runs, variant):
+    tp, t_kf, _ = fused_runs[variant]
+    assert t_kf == sorted(run["js"].delta)
+    assert np.isfinite(tp).all() and tp.shape == (N_FRAMES, 7)
+    np.testing.assert_allclose(tp, run["jp"], atol=TOL_TRAJ, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["x32", "x16"])
+def test_fused_slice_matches_unfused(run, fused_runs, variant):
+    fp, f_kf = fused_runs[variant][2]
+    up, u_kf = run["snaps"]["prefix"]
+    assert f_kf == u_kf
+    assert fp.shape == (N_PREFIX, 7)
+    np.testing.assert_allclose(fp, up, atol=TOL_ROUTES, rtol=0)
 
 
 def test_slice_edge_table_matches_jax(run):

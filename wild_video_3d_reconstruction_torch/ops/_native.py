@@ -33,7 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"corr_pyramid": 0, "runsum": 0}
+LAUNCHES = {"corr_pyramid": 0, "runsum": 0, "corr_region_fused_x32": 0,
+            "corr_region_fused_x16": 0, "corr_region_surfaces": 0,
+            "corr_region_extract": 0, "chol_solve": 0}
 
 # the C entry points and their argument types (pointers and the stream as
 # c_void_p so that 64-bit addresses are not cut to C ints)
@@ -41,6 +43,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "wv3d_corr_pyramid": [_P] * 8 + [_I] * 6 + [_P],
     "wv3d_runsum": [_P] * 5 + [_I] * 2 + [_P],
+    "wv3d_corr_region_fused_x32": [_P] * 9 + [_I] * 6 + [_P],
+    "wv3d_corr_region_fused_x16": [_P] * 9 + [_I] * 6 + [_P],
+    "wv3d_corr_region_surfaces_x16": [_P] * 8 + [_I] * 6 + [_P],
+    "wv3d_corr_region_extract_x16": [_P] * 10 + [_I] * 6 + [_P],
+    "wv3d_chol_solve": [_P] * 3 + [_I] + [_P],
 }
 
 _lib = None
@@ -122,6 +129,12 @@ def check_launch(name, err):
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def on_cuda(*tensors):
+    """True when any tensor lies on the card: its wrapper then launches
+    the kernel (or raises on a CPU/CUDA mix), never the plain version."""
+    return any(t.is_cuda for t in tensors)
 
 
 def require_cuda(name, *tensors, dtypes=None):

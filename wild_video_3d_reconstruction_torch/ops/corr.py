@@ -14,7 +14,9 @@ over a (2R+2)x(2R+2) window (zero outside the map), blended bilinearly to
     fp32 from the stored feature values.
   * `corr_lookup`: the wrapper the SLAM path calls. On CPU tensors it runs
     the plain version; on CUDA tensors it launches the exact Hopper kernel
-    of `csrc/corr.cu` (both pyramid levels in one launch) or raises.
+    of `csrc/corr.cu` (both pyramid levels in one launch) or raises. With
+    fused=True it takes the region route of `ops/corr_region.py`
+    (`PALLAS_FUSED`), which computes the same function.
 
 The blend weights are fp32 in both versions. (The JAX plain version casts
 them to the feature dtype, bf16 under mixed precision.)
@@ -92,40 +94,67 @@ def patch_corr_pyramid(gmap, pyramid, coords, kk, jj, radius=RADIUS,
     return torch.stack(outs, dim=-1).reshape(E, -1)
 
 
-def corr_lookup(gmap, pyramid, coords, kk, jj, valid, chunk=2048):
-    """[E, 882] correlation feature: the plain version for CPU tensors,
-    the Hopper kernel (`csrc/corr.cu`) for CUDA tensors.
+class KernelArgs:
+    """The correlation kernels' common arguments, checked and in the
+    types their C entry points take."""
+
+    def __init__(self, name, gmap, pyramid, coords, kk, jj, valid):
+        fmap1, fmap2 = pyramid
+        if gmap.shape[1:] != (128, 3, 3) or fmap1.shape[-1] != 128 or \
+                fmap2.shape[-1] != 128 or tuple(coords.shape[1:]) != (3, 3, 2):
+            raise ValueError(f"{name}: the kernel takes 128 channels and "
+                             "3x3 patches")
+        self.gmap, self.fmap1, self.fmap2 = gmap, fmap1, fmap2
+        self.coords = coords.float().contiguous()
+        self.kk = kk.to(torch.int32).contiguous()
+        self.jj = jj.to(torch.int32).contiguous()
+        self.valid = valid.to(torch.bool).contiguous()
+        feat = (torch.bfloat16, torch.float32)
+        _native.require_cuda(name, gmap, fmap1, fmap2, self.coords, self.kk,
+                             self.jj, self.valid,
+                             dtypes=(feat, (gmap.dtype,), (gmap.dtype,)))
+
+    def pointers(self):
+        return (self.gmap.data_ptr(), self.fmap1.data_ptr(),
+                self.fmap2.data_ptr(), self.coords.data_ptr(),
+                self.kk.data_ptr(), self.jj.data_ptr(), self.valid.data_ptr())
+
+    def sizes(self):
+        """E, the maps' sizes, the feature type and the stream."""
+        return (self.coords.shape[0], self.fmap1.shape[1],
+                self.fmap1.shape[2], self.fmap2.shape[1], self.fmap2.shape[2],
+                int(self.gmap.dtype == torch.bfloat16),
+                _native.stream_ptr(self.coords.device))
+
+
+def corr_lookup(gmap, pyramid, coords, kk, jj, valid, chunk=2048,
+                fused=False, variant="x32"):
+    """[E, 882] correlation feature.
 
     gmap [S, 128, 3, 3] and pyramid (fmap1 [F, H1, W1, 128],
     fmap2 [F, H2, W2, 128]) in bf16 or fp32; coords [E, 3, 3, 2] fp32 at
     level-1 scale; kk in [0, S) and jj in [0, F); valid [E] bool.
+
+    Unfused: the plain version (in blocks of `chunk` edges) for CPU
+    tensors, the exact per-pixel-window kernel (`csrc/corr.cu`) for CUDA
+    tensors. fused=True: the region route of `variant`
+    (`ops/corr_region.py`, whose plain version blocks by its own `CHUNK`),
+    which computes the same function.
     """
-    fmap1, fmap2 = pyramid
+    if fused:
+        from .corr_region import region_corr_pyramid
+        return region_corr_pyramid(gmap, pyramid, coords, kk, jj, valid,
+                                   variant)
     if not coords.is_cuda:
         return patch_corr_pyramid(gmap, pyramid, coords, kk, jj,
                                   valid=valid, chunk=chunk)
-    E = coords.shape[0]
-    if gmap.shape[1:] != (128, 3, 3) or fmap1.shape[-1] != 128 or \
-            fmap2.shape[-1] != 128 or tuple(coords.shape[1:]) != (3, 3, 2):
-        raise ValueError("corr_lookup: the kernel takes 128 channels and "
-                         "3x3 patches")
-    coords = coords.float().contiguous()
-    kk32 = kk.to(torch.int32).contiguous()
-    jj32 = jj.to(torch.int32).contiguous()
-    valid = valid.to(torch.bool).contiguous()
-    feat = (torch.bfloat16, torch.float32)
-    _native.require_cuda("corr_lookup", gmap, fmap1, fmap2, coords, kk32,
-                         jj32, valid, dtypes=(feat, (gmap.dtype,),
-                                              (gmap.dtype,)))
+    a = KernelArgs("corr_lookup", gmap, pyramid, coords, kk, jj, valid)
+    E = a.coords.shape[0]
     out = torch.empty((E, 882), dtype=torch.float32, device=coords.device)
     if E == 0:
         return out
-    err = _native.lib().wv3d_corr_pyramid(
-        gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(),
-        coords.data_ptr(), kk32.data_ptr(), jj32.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), E, fmap1.shape[1], fmap1.shape[2],
-        fmap2.shape[1], fmap2.shape[2], int(gmap.dtype == torch.bfloat16),
-        _native.stream_ptr(coords.device))
+    err = _native.lib().wv3d_corr_pyramid(*a.pointers(), out.data_ptr(),
+                                          *a.sizes())
     _native.check_launch("wv3d_corr_pyramid", err)
     _native.LAUNCHES["corr_pyramid"] += 1
     return out

@@ -1,7 +1,7 @@
 """Where a steady-state frame's time goes, on one NVIDIA GPU.
 
     python -m wild_video_3d_reconstruction_torch.profile_frames \
-        [--config configs/default.yaml] [--frames 24] [--out DIR]
+        [--config configs/default.yaml] [--frames 24] [--out DIR] [--fused]
 
 Drives DPVO on 384x512 synthetic frames (the drifting texture of
 `chip_smoke.py`, weights drawn from seed 0, the motion gate accepting
@@ -16,7 +16,8 @@ frames two ways:
   the traced wall time.
 
 Prints one JSON object per config and, with --out, writes it there with
-the top 25 kernels. Needs CUDA; fails without it.
+the top 25 kernels. --fused runs each config with `PALLAS_FUSED: true`
+(the region correlation kernels). Needs CUDA; fails without it.
 """
 
 from __future__ import annotations
@@ -79,8 +80,8 @@ def stage_timers(totals):
             setattr(steps, name, fn)
 
 
-def profile(config, n_frames, out_dir):
-    cfg = load_config(config, MOTION_PROBE_THRESH=0.0)
+def profile(config, n_frames, out_dir, fused=False):
+    cfg = load_config(config, MOTION_PROBE_THRESH=0.0, PALLAS_FUSED=fused)
     frames = synthetic_frames(n_frames)
     intr = np.array([320.0, 320.0, WD / 2, HT / 2])
     slam = DPVO(cfg, None, HT, WD, seed=0, device="cuda")
@@ -127,7 +128,8 @@ def profile(config, n_frames, out_dir):
     device_ms = sum(k[1] for k in kernels)
     frame_ms = 1e3 * wall2 / n2
     result = dict(
-        config=config, HxW=[HT, WD], patches=cfg.PATCHES_PER_FRAME,
+        config=config, fused=fused, variant=cfg.PALLAS_VARIANT, HxW=[HT, WD],
+        patches=cfg.PATCHES_PER_FRAME,
         device=torch.cuda.get_device_name(0),
         steady_frames_timed=n1, steady_frames_traced=n2,
         n_edges=slam.state.n_edges,
@@ -139,7 +141,8 @@ def profile(config, n_frames, out_dir):
                           launches_per_frame=k[2]) for k in kernels[:25]])
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        name = os.path.splitext(os.path.basename(config))[0]
+        name = os.path.splitext(os.path.basename(config))[0] + \
+            ("_fused" if fused else "")
         with open(os.path.join(out_dir, f"profile_{name}.json"), "w") as f:
             json.dump(result, f, indent=1)
     short = {k: v for k, v in result.items() if k != "top_kernels"}
@@ -157,6 +160,8 @@ def main(argv=None):
     parser.add_argument("--out", default=None,
                         help="directory for the full JSON (not written "
                              "without it)")
+    parser.add_argument("--fused", action="store_true",
+                        help="run with PALLAS_FUSED: true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frames needs a CUDA card")
@@ -166,7 +171,7 @@ def main(argv=None):
     print(smi.stdout.strip(), flush=True)
     for config in args.config or ["configs/default.yaml",
                                   "configs/fast.yaml"]:
-        profile(config, args.frames, args.out)
+        profile(config, args.frames, args.out, fused=args.fused)
 
 
 if __name__ == "__main__":

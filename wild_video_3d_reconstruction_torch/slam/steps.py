@@ -130,7 +130,8 @@ def _run_update_net(cfg, net, state: SLAMState, net_e, ii, jj, kk, valid, n,
     coords = torch.where(valid[:, None, None, None], coords, 0.0)
     kk_slot = kk % (M * pmem)
     corr = corr_lookup(state.gmap, (state.fmap1, state.fmap2), coords.float(),
-                       kk_slot, jj % pmem, valid, chunk=cfg.CORR_CHUNK)
+                       kk_slot, jj % pmem, valid, chunk=cfg.CORR_CHUNK,
+                       fused=cfg.PALLAS_FUSED, variant=cfg.PALLAS_VARIANT)
     ctx = state.imap[kk_slot]
 
     # bounded segment ids of the SoftAgg groups

@@ -3,17 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels, holds each against its plain PyTorch
-version at default-config shapes (the region kernels also on patches
-spread wide enough to take the spill path), drives the entry points of the
-kernels that no VO path runs (the split region pair, the Cholesky solve),
-then drives the DPVO main path (warm-up, motion probe, 12-iteration
-bootstrap, steady-state frames, terminate, TUM export) at
-configs/default.yaml and configs/fast.yaml, each unfused and with
-`PALLAS_FUSED: true`, on 384x512 synthetic frames with weights drawn from
-a seed, and checks small runs on the card (unfused, fused x32, fused x16)
-against the same runs on the CPU. Each phase prints one JSON line; the
-kernel summary and then the result line come last. Any failure exits
-non-zero without the result line; so does a machine without CUDA.
+version at default-config shapes (the correlation body of both routes also
+on patches spread wide enough to take its per-pixel path and the region
+spill path), drives the entry points of the kernels that no VO path runs
+(the split region pair, the Cholesky solve), then drives the DPVO main path
+(warm-up, motion probe, 12-iteration bootstrap, steady-state frames,
+terminate, TUM export) at configs/default.yaml and configs/fast.yaml, each
+unfused and with `PALLAS_FUSED: true`, on 384x512 synthetic frames with
+weights drawn from a seed, and checks small runs on the card (unfused,
+fused x32, fused x16) against the same runs on the CPU. Each VO run also
+reports the share of its correlation edge-levels that took the per-pixel
+path. Each phase prints one JSON line; the kernel summary and then the
+result line come last. Any failure exits non-zero without the result line;
+so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -36,10 +38,10 @@ from wild_video_3d_reconstruction_torch.ops import _native
 from wild_video_3d_reconstruction_torch.ops import chol as tchol
 from wild_video_3d_reconstruction_torch.ops import corr_region as tregion
 from wild_video_3d_reconstruction_torch.ops.corr import (
-    corr_lookup, patch_corr_pyramid)
+    LEVELS, box_plan, corr_lookup, patch_corr_pyramid)
 from wild_video_3d_reconstruction_torch.ops.segment import (
     run_segment_sum_sorted, run_segment_sum_sorted_plain)
-from wild_video_3d_reconstruction_torch.slam import DPVO
+from wild_video_3d_reconstruction_torch.slam import DPVO, steps
 from wild_video_3d_reconstruction_torch.utils.config import (
     DPVOConfig, load_config)
 
@@ -274,6 +276,54 @@ def bound(n_bytes, ops, peak):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+BOX_SOURCE = "wild_video_3d_reconstruction_torch/csrc/corr_box.cu"
+
+
+def per_pixel_counts(pyr, coords, valid):
+    """(valid edge-levels, those with a pixel on the correlation body's
+    per-pixel path), as device tensors (`box_plan`, no host sync)."""
+    v = valid.bool()
+    n_levels = torch.zeros((), dtype=torch.long, device=coords.device)
+    n_per_pixel = torch.zeros_like(n_levels)
+    for fmap, s in zip(pyr, LEVELS):
+        cls, _ = box_plan(coords / s, fmap.shape[1], fmap.shape[2])
+        n_levels += v.sum()
+        n_per_pixel += ((cls == 2).any(1) & v).sum()
+    return n_levels, n_per_pixel
+
+
+def per_pixel_share(pyr, coords, valid):
+    n_levels, n_per_pixel = per_pixel_counts(pyr, coords, valid)
+    return int(n_per_pixel) / max(int(n_levels), 1)
+
+
+class PerPixelTally:
+    """Wraps the frame step's correlation lookup to count, over a VO run,
+    the valid edge-levels and those that took the per-pixel path. The
+    count adds a few small launches per lookup to the timed run."""
+
+    def __init__(self):
+        self.counts = None
+        self.saved = steps.corr_lookup
+
+    def __enter__(self):
+        def lookup(gmap, pyramid, coords, kk, jj, valid, **kw):
+            c = per_pixel_counts(pyramid, coords, valid)
+            self.counts = c if self.counts is None else \
+                tuple(a + b for a, b in zip(self.counts, c))
+            return self.saved(gmap, pyramid, coords, kk, jj, valid, **kw)
+        steps.corr_lookup = lookup
+        return self
+
+    def __exit__(self, *exc):
+        steps.corr_lookup = self.saved
+
+    def summary(self):
+        n_levels, n_per_pixel = (int(c) for c in self.counts)
+        return dict(edge_levels=n_levels, per_pixel_edge_levels=n_per_pixel,
+                    per_pixel_share=n_per_pixel / max(n_levels, 1))
+
+
 def kernel_corr(gen):
     gmap, fmap1, fmap2, coords, kk, jj, valid = corr_inputs(gen)
     E = coords.shape[0]
@@ -286,20 +336,28 @@ def kernel_corr(gen):
     rel = err / max(ref.abs().max().item(), 1e-30)
     finite = bool(torch.isfinite(out).all())
     ms = time_ms(lambda: corr_lookup(gmap, pyr, coords, kk, jj, valid))
+    # the same edges processed grouped by target frame (the JAX kernels
+    # bucket by frame): does L2 reuse of fmap1 (113 MB here) pay?
+    order = jj.argsort(stable=True)
+    grouped = (coords[order].contiguous(), kk[order].contiguous(),
+               jj[order].contiguous(), valid[order].contiguous())
+    ms_grouped = time_ms(lambda: corr_lookup(gmap, pyr, *grouped))
+    del grouped
     plain_ms = time_ms(lambda: patch_corr_pyramid(
         gmap, pyr, coords, kk, jj, valid=valid, chunk=4096), reps=3,
         warmup=1)
     lib_ms = window_einsum_ms(gmap, pyr, coords, kk, jj)
     n_bytes, flops = corr_work(gmap, pyr, coords, kk, jj, valid, out)
     row = dict(
-        name="corr_pyramid", route="cuda",
-        source="wild_video_3d_reconstruction_torch/csrc/corr.cu",
+        name="corr_pyramid", route="cuda", source=BOX_SOURCE,
         replaces="wild_video_3d_reconstruction_tpu/ops/pallas_corr.py:83, "
                  "wild_video_3d_reconstruction_tpu/ops/pallas_corr.py:123",
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         **bound(n_bytes, flops, BF16_FLOPS), library_ms=lib_ms)
     emit("kernels", E=E, rel_err=rel, tol_abs=TOL_CORR_ABS,
-         finite=finite, bytes=n_bytes, flops=flops, **row)
+         finite=finite, bytes=n_bytes, flops=flops,
+         per_pixel_share=per_pixel_share(pyr, coords, valid),
+         ms_edges_grouped_by_jj=ms_grouped, **row)
     if not finite or not err <= TOL_CORR_ABS:
         fail(f"corr kernel disagrees with its plain version: max abs err "
              f"{err} > {TOL_CORR_ABS}")
@@ -382,7 +440,7 @@ def kernel_region_fused(gen, variant, M=384, E=E_KERNEL, shapes="default"):
             if spread == 1.0 else None
         n_bytes, flops = corr_work(gmap, pyr, coords, kk, jj, valid, out,
                                    spill)
-        r = dict(name=name, route="cuda", source=REGION_SOURCE,
+        r = dict(name=name, route="cuda", source=BOX_SOURCE,
                  replaces=f"{PALLAS_CORR}:340" if variant == "x32"
                  else f"{PALLAS_CORR}:157",
                  max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -390,6 +448,7 @@ def kernel_region_fused(gen, variant, M=384, E=E_KERNEL, shapes="default"):
                  library_ms=lib_ms)
         emit("kernels", shapes=shapes, E=E, patches_per_frame=M,
              pixel_spacing_px=spread, spill_edges=n_spill,
+             per_pixel_share=per_pixel_share(pyr, coords, valid),
              spill_flags_match_plain=same_spill, tol_abs=TOL_CORR_ABS,
              finite=finite, bytes=n_bytes, flops=flops, **r)
         if not finite or not err <= TOL_CORR_ABS or not same_spill:
@@ -560,15 +619,16 @@ def phase_slam(name, config, n_frames, expect, fused=False):
     _native.reset_launch_counts()
     t_start = time.perf_counter()
     steady_t, steady_launch, max_edges = None, None, 0
-    for t, img in enumerate(frames):
-        if slam.is_initialized and steady_t is None:
-            torch.cuda.synchronize()
-            steady_t = time.perf_counter()
-            steady_launch = dict(_native.LAUNCHES)
-            n_steady0 = t
-        slam(t, img, intr)
-        max_edges = max(max_edges, slam.state.n_edges)
-    torch.cuda.synchronize()
+    with PerPixelTally() as tally:
+        for t, img in enumerate(frames):
+            if slam.is_initialized and steady_t is None:
+                torch.cuda.synchronize()
+                steady_t = time.perf_counter()
+                steady_launch = dict(_native.LAUNCHES)
+                n_steady0 = t
+            slam(t, img, intr)
+            max_edges = max(max_edges, slam.state.n_edges)
+        torch.cuda.synchronize()
     t_end = time.perf_counter()
     poses, tstamps = slam.terminate()
     launches = dict(_native.LAUNCHES)
@@ -590,6 +650,7 @@ def phase_slam(name, config, n_frames, expect, fused=False):
          fps_steady=n_steady / (t_end - steady_t),
          total_s=t_end - t_start, launches=launches,
          launches_per_steady_frame=per_frame, poses_finite=finite,
+         correlation=tally.summary(),
          tum_rows=int(back.shape[0]),
          motion_gate="probe runs; MOTION_PROBE_THRESH=0 accepts every frame",
          weights="random, seed 0")

@@ -88,3 +88,60 @@ def test_lookup_bf16_features_on_cpu():
                                    coords, kk, jj, valid=valid)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
 
+
+
+def _box_plan_loop(coords, H, W, box, D=8):
+    """Loop oracle of the correlation kernel's staging plan at one level."""
+    cls_all, box_all = [], []
+    for c in coords.reshape(coords.shape[0], 9, 2):
+        def start(v):
+            v = 1e6 if np.isnan(v) else min(max(float(v), -1e6), 1e6)
+            return int(np.floor(v)) - 3
+        ys = [start(y) for _, y in c]
+        xs = [start(x) for x, _ in c]
+        on = [-D < y < H and -D < x < W for y, x in zip(ys, xs)]
+        if not any(on):
+            cls_all.append([0] * 9)
+            box_all.append([0, 0, 0, 0])
+            continue
+        y0 = min(y for y, o in zip(ys, on) if o)
+        x0 = min(x for x, o in zip(xs, on) if o)
+        inb = [o and y - y0 <= box - D and x - x0 <= box - D
+               for y, x, o in zip(ys, xs, on)]
+        cls_all.append([1 if i else (2 if o else 0) for i, o in zip(inb, on)])
+        # the least starts may come from two pixels, neither in the box
+        y1 = max([y + D for y, i in zip(ys, inb) if i] + [y0])
+        x1 = max([x + D for x, i in zip(xs, inb) if i] + [x0])
+        box_all.append([y0, x0, y1 - y0, x1 - x0])
+    return np.array(cls_all), np.array(box_all)
+
+
+@pytest.mark.parametrize("seed, spread", [(0, 1.0), (1, 6.0), (2, 12.0),
+                                          (3, 30.0)])
+def test_box_plan_matches_loop_oracle(seed, spread):
+    """`box_plan` (the plain mirror of the correlation kernel's choice of
+    staged and per-pixel windows) against a loop oracle, at both levels,
+    with patches from compact to beyond the staging capacity, off the map,
+    NaN and huge."""
+    _, pyr, coords, *_ = make_case(seed, E=200, spread=spread)
+    coords[:5] = np.nan
+    coords[5:8, 1, 1] = (1e7, -1e7)
+    for fmap, s in zip(pyr, tcorr.LEVELS):
+        H, W = fmap.shape[1:3]
+        cls, box = tcorr.box_plan(torch.from_numpy(coords / s), H, W)
+        ref_cls, ref_box = _box_plan_loop(coords / s, H, W, tcorr.BOX)
+        np.testing.assert_array_equal(cls.numpy(), ref_cls)
+        np.testing.assert_array_equal(box.numpy(), ref_box)
+        assert (box[:, 2:] <= tcorr.BOX).all()
+
+
+def test_plain_pyramid_invalid_rows_are_zero():
+    """Rows of invalid edges are zero even where the coordinates are not
+    finite (the kernel writes zeros there without reading them)."""
+    gmap, pyr, coords, kk, jj, valid = make_case(6)
+    coords[valid] = np.where(np.isnan(coords[valid]), 0.0, coords[valid])
+    coords[~valid] = np.nan
+    out = tcorr.patch_corr_pyramid(*to_t(gmap, pyr, coords, kk, jj, valid)[:5],
+                                   valid=torch.from_numpy(valid))
+    assert not bool(out[torch.from_numpy(~valid)].any())
+    assert bool(torch.isfinite(out).all())

@@ -46,9 +46,9 @@ def corr_case(seed, E=4096, S=512, F=8, H=96, W=128, C=128, spread=6.0):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_corr_kernel_matches_plain(cuda_device, dtype):
-    """csrc/corr.cu against the plain version on the same stored feature
-    values, within 1e-2 absolute (fp32 sums of 128 products, other
-    order)."""
+    """csrc/corr_box.cu (unfused entry) against the plain version on the
+    same stored feature values, within 1e-2 absolute (fp32 sums of 128
+    products, other order)."""
     gmap, fmaps, coords, kk, jj, valid = corr_case(0)
     g = torch.from_numpy(gmap).to(cuda_device, dtype)
     pyr = tuple(torch.from_numpy(f).to(cuda_device, dtype) for f in fmaps)
@@ -115,10 +115,10 @@ def _to_dev(case, dev, dtype):
 @pytest.mark.parametrize("spread", [1.0, 12.0])
 def test_region_fused_kernel_matches_plain(cuda_device, dtype, variant,
                                            spread):
-    """csrc/corr_region.cu fused (#4 x32, #5 x16) against the plain region
-    version and the exact oracle, within 1e-2 absolute (fp32 sums of 128
-    products, other order), with and without spilled pixels; the spill
-    flags agree exactly."""
+    """csrc/corr_box.cu through the fused entries (#4 x32, #5 x16) against
+    the plain region version and the exact oracle, within 1e-2 absolute
+    (fp32 sums of 128 products, other order), with and without spilled
+    pixels; the spill flags agree exactly."""
     g, pyr, c, k, j, v = _to_dev(corr_case(3, spread=spread), cuda_device,
                                  dtype)
     key = f"corr_region_fused_{variant}"
@@ -181,6 +181,110 @@ def test_region_kernels_reject_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError):              # surfaces on the CPU
         tregion.region_extract(torch.zeros(64, 2, 9, 16, 16), g, pyr, c, k,
                                j, v)
+
+
+TOL_CORR_ABS = 1e-2
+BOX_CASES = ("box_at_capacity", "box_beyond_capacity", "mixed_box_per_pixel",
+             "one_edge", "ragged_blocks", "tiny_map", "nan_and_huge",
+             "all_invalid")
+
+
+def _coords_from_offsets(rng, base, off, scale):
+    """coords [E, 3, 3, 2] at level-1 scale whose window starts at the
+    level of `scale` are base + off (base [E, 2] as (y, x), off [E, 3, 3, 2]
+    integers as (y, x)); fractions drawn inside a pixel."""
+    frac = rng.uniform(0.1, 0.9, size=off.shape) * scale
+    yx = (base[:, None, None, :] + off) * scale + frac
+    return np.ascontiguousarray(yx[..., ::-1]).astype(np.float32)
+
+
+def box_case(case, seed=7):
+    """Inputs of one case of the correlation body's edge cases (numpy)."""
+    rng = np.random.default_rng(seed)
+    if case in ("one_edge", "ragged_blocks"):
+        # 1003 edges: not a multiple of the kernel's edges per block (a
+        # power of two), so the last block takes fewer edges
+        E = 1 if case == "one_edge" else 1003
+        return corr_case(seed, E=E, spread=3.0)
+    if case == "tiny_map":
+        # /16 map 3x4 (the tiny slice's), smaller than the staged box
+        return corr_case(seed, E=512, H=12, W=16, spread=3.0)
+    gmap, fmaps, coords, kk, jj, valid = corr_case(seed, E=256, spread=1.0)
+    E = coords.shape[0]
+    if case in ("box_at_capacity", "box_beyond_capacity"):
+        # window starts spread BOX - 8 apart (a BOX x BOX box) at level 1
+        # for the first half of the edges and at level 2 for the second;
+        # the last pixel one further in x for the case beyond the capacity
+        span = tcorr.BOX - 8
+        grid = np.array([0, span // 2, span])
+        off = np.zeros((E, 3, 3, 2), dtype=np.int64)
+        off[..., 0] = grid[None, :, None]
+        off[..., 1] = grid[None, None, :]
+        off[:, 2, 2, 1] = span + (case == "box_beyond_capacity")
+        half = E // 2
+        base1 = np.stack([rng.integers(4, 96 - 20, half),
+                          rng.integers(4, 128 - 20, half)], -1)
+        base2 = np.stack([rng.integers(0, 24 - 16, E - half),
+                          rng.integers(0, 32 - 17, E - half)], -1)
+        coords = np.concatenate([
+            _coords_from_offsets(rng, base1 + 3, off[:half], 1.0),
+            _coords_from_offsets(rng, base2 + 3, off[half:], 4.0)])
+    elif case == "mixed_box_per_pixel":
+        # every other edge spread 12 px: staged and per-pixel edges mixed
+        # in one launch, and in one block
+        wide = corr_case(seed, E=E, spread=12.0)[2]
+        coords[1::2] = wide[1::2]
+    elif case == "nan_and_huge":
+        coords = coords.copy()
+        coords[0:16] = np.nan                    # whole edges
+        coords[16:32, 1, 2, 0] = np.nan          # one pixel's x
+        coords[32:48] = 1e7
+        coords[48:64] = -1e7
+        coords[64:80, 0, 0] = (1e7, -1e7)        # one pixel far off
+    elif case == "all_invalid":
+        valid = np.zeros(E, dtype=bool)
+    return gmap, fmaps, coords, kk, jj, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("entry", ["unfused", "x32", "x16"])
+@pytest.mark.parametrize("case", BOX_CASES)
+def test_corr_box_edge_cases(cuda_device, case, entry, dtype):
+    """The one correlation body (csrc/corr_box.cu) through each of its
+    three entry points against the exact plain version, within 1e-2
+    absolute (NaN where the plain version has NaN), and with the spill
+    flags of the plain region version; the staging plan of each geometric
+    case is checked with `box_plan`."""
+    g, pyr, c, k, j, v = _to_dev(box_case(case), cuda_device, dtype)
+    key = "corr_pyramid" if entry == "unfused" else \
+        f"corr_region_fused_{entry}"
+    n0 = _native.LAUNCHES[key]
+    if entry == "unfused":
+        out, spill = tcorr.corr_lookup(g, pyr, c, k, j, v), None
+    else:
+        out, spill = tregion.region_corr_fused(g, pyr, c, k, j, v, entry)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES[key] == n0 + 1
+    exact = tcorr.patch_corr_pyramid(g, pyr, c, k, j, valid=v)
+    torch.testing.assert_close(out, exact, rtol=0, atol=TOL_CORR_ABS,
+                               equal_nan=True)
+    if spill is not None:
+        _, ref_spill = tregion.region_corr_plain(g, pyr, c, k, j, v, entry)
+        assert torch.equal(spill, ref_spill)
+    half = c.shape[0] // 2
+    plans = [tcorr.box_plan(c.cpu() / s, f.shape[1], f.shape[2])
+             for f, s in zip(pyr, tcorr.LEVELS)]
+    if case in ("box_at_capacity", "box_beyond_capacity"):
+        for li, rows in ((0, slice(0, half)), (1, slice(half, None))):
+            cls, box = plans[li]
+            assert (box[rows, 2:] == tcorr.BOX).all()
+            beyond = (cls[rows] == 2).any(1)
+            assert bool(beyond.all()) == (case == "box_beyond_capacity")
+    elif case == "mixed_box_per_pixel":
+        per_pixel = (plans[0][0] == 2).any(1)
+        assert bool(per_pixel[1::2].any()) and not bool(per_pixel[0::2].any())
+    elif case == "all_invalid":
+        assert not bool(out.any())
 
 
 @pytest.mark.parametrize("d", [8, 54, 72, 128, 256])

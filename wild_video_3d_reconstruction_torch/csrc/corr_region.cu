@@ -1,46 +1,41 @@
-// Region correlation over a two-level feature pyramid (Hopper, sm_90a).
+// The split x16 region correlation pair over a two-level feature pyramid
+// (Hopper, sm_90a).
 //
-// Replaces the JAX package's fused TPU kernels `_corr_fused_kernel`
-// (ops/pallas_corr.py:340, x32, launched by `_surfaces_fused`) and
-// `_corr_fused_kernel4` (ops/pallas_corr.py:157, x16, `_surfaces_fused4`),
-// and the split x16 pair of `_corr_kernel4` surfaces (:123, `_surfaces4`)
-// and the standalone window extraction `_extract_kernel4` (:230,
-// `_extract_windows4`). The function is `ops/corr.py`'s
-// `patch_corr_pyramid`: for every edge, patch pixel and level, the 128-d
-// products of gmap[kk] with the 8x8 window of fmap[jj] at
-// floor(coords / scale) - 3 (zero off the map), blended bilinearly to 7x7,
-// written as the [E, 882] feature (dx, dy, pi, pj, level). The plain
-// version and the geometry are in `ops/corr_region.py`.
+// Replaces the JAX package's split x16 path: the surfaces of
+// `_corr_kernel4` (ops/pallas_corr.py:123, launched by `_surfaces4`) and
+// the standalone window extraction `_extract_kernel4` (:230,
+// `_extract_windows4`), which `patch_corr_pyramid_pallas(extract=
+// "pallas")` runs. The function is `ops/corr.py`'s `patch_corr_pyramid`:
+// for every edge, patch pixel and level, the 128-d products of gmap[kk]
+// with the 8x8 window of fmap[jj] at floor(coords / scale) - 3 (zero off
+// the map), blended bilinearly to 7x7, written as the [E, 882] feature
+// (dx, dy, pi, pj, level). The plain version and the geometry are in
+// `ops/corr_region.py`. (The fused routes and the unfused one run the
+// correlation body of `csrc/corr_box.cu`.)
 //
 // Region geometry (per edge and level): the nine window starts (ys, xs);
-// oy = min ys; ox = min xs (x16) or that value rounded down to 16 in the
-// JAX package's frame padded by 8 (x32). A pixel fits when its window lies
-// inside the 16 x RW region. The TPU kernels zero the pixels that do not
-// fit; here a pixel that does not fit but overlaps the map takes the spill
-// path, its window computed straight from the map, so the result is exact
-// for any spread. The region never needs a padded map: positions off the
-// map read as zero.
+// the region origin oy = min ys, ox = min xs (the x16 geometry, the only
+// one these kernels serve); a pixel fits when its window lies inside the
+// 16 x RW region. The TPU kernels zero the pixels that do
+// not fit; here a pixel that does not fit but overlaps the map takes the
+// spill path, its window computed straight from the map, so the result is
+// exact for any spread. The region never needs a padded map: positions off
+// the map read as zero.
 //
-// Design. One block per edge, one thread per region position (16 x RW).
-// The 9x128 patch features sit in shared memory as fp32. The box of the
-// region that the fitting windows cover is staged in shared memory one
-// 32-channel chunk at a time (16-byte loads, fp32, a padded stride of 36
-// floats so that the 16-byte reads of neighbouring positions hit distinct
-// banks); each thread accumulates its position's nine surface values in
-// registers (fp32 SIMT FMAs, the patch features read as broadcasts). The
-// fused kernels then put the surfaces in shared memory, select each
-// pixel's 8x8 window, compute the spill windows, blend, and write the
-// edge's 882 outputs as one row; both levels run in one launch. The
-// surfaces kernel writes the full 16x16 surfaces of both levels to device
-// memory; the extract kernel (576 threads, one per pixel and window
-// position) selects from them, computes the spill windows and blends.
+// Design. The surfaces kernel: one block per edge, one thread per region
+// position (16 x 16). The 9x128 patch features sit in shared memory as
+// fp32. The region is staged in shared memory one 32-channel chunk at a
+// time (16-byte loads, fp32, a padded stride of 36 floats so that the
+// 16-byte reads of neighbouring positions hit distinct banks); each thread
+// accumulates its position's nine surface values in registers (fp32 SIMT
+// FMAs, the patch features read as broadcasts) and writes the full 16x16
+// surfaces of both levels to device memory. The extract kernel (576
+// threads, one per pixel and window position) selects from them, computes
+// the spill windows and blends.
 //
-// Bound. At the SLAM path's shapes the fused kernels' device-memory bytes
-// are the fmaps and gmap read once plus 3.5 KB of output per edge; what
-// they spend beyond is staging the box through L2 and the shared-memory
-// reads of the SIMT products. The split pair moves the fp32 surfaces
-// (18 KB per edge) through device memory twice by design. Tensor-core
-// products and TMA staging are left for later work.
+// Bound. The pair moves the fp32 surfaces (18 KB per edge) through device
+// memory twice by design; beyond that, the fmaps and gmap read once and
+// 3.5 KB of output per edge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +53,6 @@ constexpr int kOut = kDO * kDO * kNP * 2;  // 882
 constexpr int kRH = 16;                    // region rows
 constexpr int kCH = 32;                    // channels staged per pass
 constexpr int kCS = kCH + 4;               // staged floats per position
-constexpr int kPad = 8;                    // JAX map padding (x32 phase)
 constexpr int kWinThreads = kNP * kD * kD; // 576
 constexpr float kCoordLim = 1e6f;
 
@@ -90,26 +84,19 @@ __device__ __forceinline__ float clamp_coord(float v) {
   return v != v ? kCoordLim : fminf(fmaxf(v, -kCoordLim), kCoordLim);
 }
 
-__device__ __forceinline__ int floor_div16(int a) {
-  int q = a / 16;
-  if (a % 16 < 0) --q;
-  return q;
-}
-
 // The geometry of one edge at one level, written by one thread.
 struct Geo {
   int ys[kNP], xs[kNP];      // window starts
   float fx[kNP], fy[kNP];    // blend weights
   int fit[kNP], spill[kNP];
   int oy, ox;                // region origin
-  int by0, bx0, bh, bw;      // staged box
   int any_spill;
 };
 
 template <int RW>
 __device__ void edge_geometry(const float* cp, float s, int H, int W,
-                              bool full, Geo& g) {
-  int oy = INT_MAX, mx = INT_MAX;
+                              Geo& g) {
+  int oy = INT_MAX, ox = INT_MAX;
   for (int p = 0; p < kNP; ++p) {
     const float x = cp[2 * p] / s;
     const float y = cp[2 * p + 1] / s;
@@ -118,10 +105,9 @@ __device__ void edge_geometry(const float* cp, float s, int H, int W,
     g.ys[p] = static_cast<int>(floorf(clamp_coord(y))) - kR;
     g.xs[p] = static_cast<int>(floorf(clamp_coord(x))) - kR;
     oy = min(oy, g.ys[p]);
-    mx = min(mx, g.xs[p]);
+    ox = min(ox, g.xs[p]);
   }
-  const int ox = RW == 32 ? floor_div16(mx + kPad) * 16 - kPad : mx;
-  int y0 = INT_MAX, y1 = INT_MIN, x0 = INT_MAX, x1 = INT_MIN, any = 0;
+  int any = 0;
   for (int p = 0; p < kNP; ++p) {
     const int fit = g.ys[p] - oy <= kRH - kD && g.xs[p] - ox <= RW - kD;
     const int over = g.ys[p] > -kD && g.ys[p] < H && g.xs[p] > -kD &&
@@ -129,23 +115,10 @@ __device__ void edge_geometry(const float* cp, float s, int H, int W,
     g.fit[p] = fit;
     g.spill[p] = over && !fit;
     any |= g.spill[p];
-    if (fit) {
-      y0 = min(y0, g.ys[p]);
-      y1 = max(y1, g.ys[p] + kD);
-      x0 = min(x0, g.xs[p]);
-      x1 = max(x1, g.xs[p] + kD);
-    }
   }
   g.oy = oy;
   g.ox = ox;
   g.any_spill = any;
-  if (full) {
-    g.by0 = oy; g.bx0 = ox; g.bh = kRH; g.bw = RW;
-  } else if (y0 == INT_MAX) {
-    g.by0 = oy; g.bx0 = ox; g.bh = 0; g.bw = 0;
-  } else {
-    g.by0 = y0; g.bx0 = x0; g.bh = y1 - y0; g.bw = x1 - x0;
-  }
 }
 
 // <g, fmap[j, y, x]> straight from the map (the spill path); 0 off the map
@@ -189,64 +162,51 @@ __device__ void load_patch(const T* gmap, size_t k, float* g_s, int t,
     g_s[(i % kNP) * kC + i / kNP] = to_float(gmap[k * kNP * kC + i]);
 }
 
-// kFused: the fused kernels (#4 with RW = 32, #5 with RW = 16), out is
-// [E, 882] and spill_out [E]. Otherwise the surfaces kernel: out is
-// [E, 2, 9, 16, RW] surfaces over the full region, zero for invalid edges.
-template <int RW, typename T, bool kFused>
+// The surfaces kernel: out is [E, 2, 9, 16, RW] surfaces over the full
+// region, zero for invalid edges.
+template <int RW, typename T>
 __global__ void __launch_bounds__(kRH * RW)
 region_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
               const T* __restrict__ fmap2, const float* __restrict__ coords,
               const int* __restrict__ kk, const int* __restrict__ jj,
               const unsigned char* __restrict__ valid,
-              float* __restrict__ out, unsigned char* __restrict__ spill_out,
-              int H1, int W1, int H2, int W2) {
+              float* __restrict__ out, int H1, int W1, int H2, int W2) {
   constexpr int kThreads = kRH * RW;
   constexpr int kPos = kRH * RW;
   extern __shared__ float4 dyn_smem[];
   float* g_s = reinterpret_cast<float*>(dyn_smem);  // [9][128]
   float* reg_s = g_s + kNP * kC;                     // [kPos][kCS]
-  float* s_s = reg_s + kPos * kCS;                   // [9][npos] (fused)
   __shared__ Geo geo;
-  __shared__ float w_s[kNP * kD * kD];
-  __shared__ float o_s[kOut];
 
   const int e = blockIdx.x;
   const int t = threadIdx.x;
   if (!valid[e]) {
-    if (kFused) {
-      for (int i = t; i < kOut; i += kThreads)
-        out[static_cast<size_t>(e) * kOut + i] = 0.0f;
-      if (t == 0) spill_out[e] = 0;
-    } else {
-      for (int i = t; i < 2 * kNP * kPos; i += kThreads)
-        out[static_cast<size_t>(e) * 2 * kNP * kPos + i] = 0.0f;
-    }
+    for (int i = t; i < 2 * kNP * kPos; i += kThreads)
+      out[static_cast<size_t>(e) * 2 * kNP * kPos + i] = 0.0f;
     return;
   }
   const int j = jj[e];
   load_patch(gmap, static_cast<size_t>(kk[e]), g_s, t, kThreads);
   const float* cp = coords + static_cast<size_t>(e) * kNP * 2;
-  int spilled = 0;
 
   for (int l = 0; l < 2; ++l) {
     const T* fmap = l ? fmap2 : fmap1;
     const int H = l ? H2 : H1;
     const int W = l ? W2 : W1;
     __syncthreads();  // g_s written; the previous level's smem consumed
-    if (t == 0) edge_geometry<RW>(cp, l ? 4.0f : 1.0f, H, W, !kFused, geo);
+    if (t == 0) edge_geometry<RW>(cp, l ? 4.0f : 1.0f, H, W, geo);
     __syncthreads();
-    const int by0 = geo.by0, bx0 = geo.bx0, bw = geo.bw;
-    const int npos = geo.bh * bw;
+    const int oy = geo.oy, ox = geo.ox;
 
     float acc[kNP];
 #pragma unroll
     for (int p = 0; p < kNP; ++p) acc[p] = 0.0f;
     for (int c0 = 0; c0 < kC; c0 += kCH) {
-      for (int i = t; i < npos * (kCH / 8); i += kThreads) {
+      for (int i = t; i < kPos * (kCH / 8); i += kThreads) {
         const int pos = i / (kCH / 8);
         const int q = i % (kCH / 8);
-        const int y = by0 + pos / bw;
-        const int x = bx0 + pos % bw;
+        const int y = oy + pos / RW;
+        const int x = ox + pos % RW;
         float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
         if (y >= 0 && y < H && x >= 0 && x < W)
           load8(fmap + ((static_cast<size_t>(j) * H + y) * W + x) * kC +
@@ -256,58 +216,26 @@ region_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
         dst[1] = make_float4(f[4], f[5], f[6], f[7]);
       }
       __syncthreads();
-      if (t < npos) {
-        const float4* r4 = reinterpret_cast<const float4*>(reg_s + t * kCS);
+      const float4* r4 = reinterpret_cast<const float4*>(reg_s + t * kCS);
 #pragma unroll
-        for (int c = 0; c < kCH / 4; ++c) {
-          const float4 r = r4[c];
+      for (int c = 0; c < kCH / 4; ++c) {
+        const float4 r = r4[c];
 #pragma unroll
-          for (int p = 0; p < kNP; ++p) {
-            const float4 g =
-                reinterpret_cast<const float4*>(g_s + p * kC + c0)[c];
-            acc[p] = fmaf(r.x, g.x, acc[p]);
-            acc[p] = fmaf(r.y, g.y, acc[p]);
-            acc[p] = fmaf(r.z, g.z, acc[p]);
-            acc[p] = fmaf(r.w, g.w, acc[p]);
-          }
+        for (int p = 0; p < kNP; ++p) {
+          const float4 g =
+              reinterpret_cast<const float4*>(g_s + p * kC + c0)[c];
+          acc[p] = fmaf(r.x, g.x, acc[p]);
+          acc[p] = fmaf(r.y, g.y, acc[p]);
+          acc[p] = fmaf(r.z, g.z, acc[p]);
+          acc[p] = fmaf(r.w, g.w, acc[p]);
         }
       }
       __syncthreads();
     }
-
-    if (!kFused) {
-      // full region: npos == kPos == kThreads, position t = y * RW + x
-      float* so = out + (static_cast<size_t>(e) * 2 + l) * kNP * kPos;
+    // position t = y * RW + x of the full region
+    float* so = out + (static_cast<size_t>(e) * 2 + l) * kNP * kPos;
 #pragma unroll
-      for (int p = 0; p < kNP; ++p) so[p * kPos + t] = acc[p];
-      continue;
-    }
-    if (t < npos) {
-#pragma unroll
-      for (int p = 0; p < kNP; ++p) s_s[p * npos + t] = acc[p];
-    }
-    __syncthreads();
-    for (int i = t; i < kNP * kD * kD; i += kThreads) {
-      const int p = i / (kD * kD);
-      const int a = (i / kD) % kD;
-      const int b = i % kD;
-      float w = 0.0f;
-      if (geo.fit[p])
-        w = s_s[p * npos + (geo.ys[p] + a - by0) * bw + geo.xs[p] + b - bx0];
-      else if (geo.spill[p])
-        w = window_dot(fmap, j, H, W, geo.ys[p] + a, geo.xs[p] + b,
-                       g_s + p * kC);
-      w_s[i] = w;
-    }
-    __syncthreads();
-    blend(w_s, geo, l, o_s, t, kThreads);
-    spilled |= geo.any_spill;
-  }
-  if (kFused) {
-    __syncthreads();
-    float* orow = out + static_cast<size_t>(e) * kOut;
-    for (int i = t; i < kOut; i += kThreads) orow[i] = o_s[i];
-    if (t == 0) spill_out[e] = static_cast<unsigned char>(spilled);
+    for (int p = 0; p < kNP; ++p) so[p * kPos + t] = acc[p];
   }
 }
 
@@ -350,7 +278,7 @@ extract_kernel(const float* __restrict__ surf, const T* __restrict__ gmap,
     const int H = l ? H2 : H1;
     const int W = l ? W2 : W1;
     __syncthreads();
-    if (t == 0) edge_geometry<RW>(cp, l ? 4.0f : 1.0f, H, W, true, geo);
+    if (t == 0) edge_geometry<RW>(cp, l ? 4.0f : 1.0f, H, W, geo);
     __syncthreads();
     float w = 0.0f;
     if (geo.fit[p])
@@ -370,84 +298,60 @@ extract_kernel(const float* __restrict__ surf, const T* __restrict__ gmap,
   if (t == 0) spill_out[e] = static_cast<unsigned char>(spilled);
 }
 
-template <int RW, bool kFused, typename T>
+template <int RW, typename T>
 int launch_region(const void* gmap, const void* fmap1, const void* fmap2,
                   const void* coords, const void* kk, const void* jj,
-                  const void* valid, void* out, void* spill, int E, int H1,
-                  int W1, int H2, int W2, cudaStream_t st) {
+                  const void* valid, void* out, int E, int H1, int W1, int H2,
+                  int W2, cudaStream_t st) {
   constexpr int kPos = kRH * RW;
-  const size_t smem =
-      (kNP * kC + kPos * kCS + (kFused ? kNP * kPos : 0)) * sizeof(float);
+  const size_t smem = (kNP * kC + kPos * kCS) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      region_kernel<RW, T, kFused>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      region_kernel<RW, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  region_kernel<RW, T, kFused><<<E, kRH * RW, smem, st>>>(
+  region_kernel<RW, T><<<E, kRH * RW, smem, st>>>(
       static_cast<const T*>(gmap), static_cast<const T*>(fmap1),
       static_cast<const T*>(fmap2), static_cast<const float*>(coords),
       static_cast<const int*>(kk), static_cast<const int*>(jj),
-      static_cast<const unsigned char*>(valid), static_cast<float*>(out),
-      static_cast<unsigned char*>(spill), H1, W1, H2, W2);
+      static_cast<const unsigned char*>(valid), static_cast<float*>(out), H1,
+      W1, H2, W2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int RW, bool kFused>
+template <int RW>
 int dispatch_region(const void* gmap, const void* fmap1, const void* fmap2,
                     const void* coords, const void* kk, const void* jj,
-                    const void* valid, void* out, void* spill, int E, int H1,
-                    int W1, int H2, int W2, int feat_bf16, void* stream) {
+                    const void* valid, void* out, int E, int H1, int W1,
+                    int H2, int W2, int feat_bf16, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (feat_bf16)
-    return launch_region<RW, kFused, __nv_bfloat16>(
-        gmap, fmap1, fmap2, coords, kk, jj, valid, out, spill, E, H1, W1, H2,
-        W2, st);
-  return launch_region<RW, kFused, float>(gmap, fmap1, fmap2, coords, kk, jj,
-                                          valid, out, spill, E, H1, W1, H2,
-                                          W2, st);
+    return launch_region<RW, __nv_bfloat16>(gmap, fmap1, fmap2, coords, kk,
+                                            jj, valid, out, E, H1, W1, H2, W2,
+                                            st);
+  return launch_region<RW, float>(gmap, fmap1, fmap2, coords, kk, jj, valid,
+                                  out, E, H1, W1, H2, W2, st);
 }
 
 }  // namespace
 
-// Arguments as `wv3d_corr_pyramid` (csrc/corr.cu): gmap [S, 128, 3, 3],
+// Arguments as `wv3d_corr_pyramid` (csrc/corr_box.cu): gmap [S, 128, 3, 3],
 // fmap1 [F, H1, W1, 128], fmap2 [F, H2, W2, 128] in bf16 (feat_bf16 != 0)
 // or fp32; coords [E, 3, 3, 2] fp32; kk, jj [E] int32 in [0, S) and
-// [0, F); valid [E] bool. The fused entry points write out [E, 882] fp32
-// and spill [E] uint8 (1 where a valid edge took the spill path at either
-// level). Each returns the cudaError_t of its launch.
-extern "C" int wv3d_corr_region_fused_x32(
-    const void* gmap, const void* fmap1, const void* fmap2,
-    const void* coords, const void* kk, const void* jj, const void* valid,
-    void* out, void* spill, int E, int H1, int W1, int H2, int W2,
-    int feat_bf16, void* stream) {
-  return dispatch_region<32, true>(gmap, fmap1, fmap2, coords, kk, jj, valid,
-                                   out, spill, E, H1, W1, H2, W2, feat_bf16,
-                                   stream);
-}
-
-extern "C" int wv3d_corr_region_fused_x16(
-    const void* gmap, const void* fmap1, const void* fmap2,
-    const void* coords, const void* kk, const void* jj, const void* valid,
-    void* out, void* spill, int E, int H1, int W1, int H2, int W2,
-    int feat_bf16, void* stream) {
-  return dispatch_region<16, true>(gmap, fmap1, fmap2, coords, kk, jj, valid,
-                                   out, spill, E, H1, W1, H2, W2, feat_bf16,
-                                   stream);
-}
-
+// [0, F); valid [E] bool. Each returns the cudaError_t of its launch.
 // surf [E, 2, 9, 16, 16] fp32: the x16 surfaces of both levels.
 extern "C" int wv3d_corr_region_surfaces_x16(
     const void* gmap, const void* fmap1, const void* fmap2,
     const void* coords, const void* kk, const void* jj, const void* valid,
     void* surf, int E, int H1, int W1, int H2, int W2, int feat_bf16,
     void* stream) {
-  return dispatch_region<16, false>(gmap, fmap1, fmap2, coords, kk, jj,
-                                    valid, surf, nullptr, E, H1, W1, H2, W2,
-                                    feat_bf16, stream);
+  return dispatch_region<16>(gmap, fmap1, fmap2, coords, kk, jj, valid, surf,
+                             E, H1, W1, H2, W2, feat_bf16, stream);
 }
 
-// surf as written by wv3d_corr_region_surfaces_x16; out and spill as the
-// fused entry points.
+// surf as written by wv3d_corr_region_surfaces_x16; out [E, 882] fp32 and
+// spill [E] uint8 (1 where a valid edge took the spill path at either
+// level).
 extern "C" int wv3d_corr_region_extract_x16(
     const void* surf, const void* gmap, const void* fmap1, const void* fmap2,
     const void* coords, const void* kk, const void* jj, const void* valid,

@@ -13,13 +13,20 @@ over a (2R+2)x(2R+2) window (zero outside the map), blended bilinearly to
     edges), counterpart of the JAX package's `ops/corr.py`. It computes in
     fp32 from the stored feature values.
   * `corr_lookup`: the wrapper the SLAM path calls. On CPU tensors it runs
-    the plain version; on CUDA tensors it launches the exact Hopper kernel
-    of `csrc/corr.cu` (both pyramid levels in one launch) or raises. With
-    fused=True it takes the region route of `ops/corr_region.py`
-    (`PALLAS_FUSED`), which computes the same function.
+    the plain version; on CUDA tensors it launches the exact Hopper
+    correlation body of `csrc/corr_box.cu` (both pyramid levels in one
+    launch) or raises. With fused=True it takes the region route of
+    `ops/corr_region.py` (`PALLAS_FUSED`), which launches the same body and
+    also returns the region spill flags.
+  * `box_plan`: the kernel's choice, per edge and level, of the pixels it
+    takes from the staged box and those it takes per pixel from the map
+    (the result does not depend on it; `chip_smoke.py` reports the share).
 
 The blend weights are fp32 in both versions. (The JAX plain version casts
-them to the feature dtype, bf16 under mixed precision.)
+them to the feature dtype, bf16 under mixed precision.) Rows of invalid
+edges are zero. (The JAX plain version multiplies them by 0, so coordinates
+that are not finite give NaN there; the SLAM path zeroes the coordinates
+of invalid edges before the lookup, so the two agree on it.)
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from . import _native
 
 LEVELS = (1, 4)
 RADIUS = 3
+BOX = 12               # csrc/corr_box.cu: staging capacity, positions a side
+COORD_LIM = 1e6        # coordinates are clamped here before floor
 
 
 def _corr_level_chunk(gmap, fmap_flat, H, W, radius, coords, kk, jj, valid):
@@ -62,7 +71,7 @@ def _corr_level_chunk(gmap, fmap_flat, H, W, radius, coords, kk, jj, valid):
            + dxe * (1 - dye) * c_full[..., :d, 1:]
            + (1 - dxe) * dye * c_full[..., 1:, :d]
            + dxe * dye * c_full[..., 1:, 1:])             # [e,P,P,dy,dx]
-    out = out * valid[:, None, None, None, None]
+    out = torch.where(valid[:, None, None, None, None] != 0, out, 0.0)
     return out.permute(0, 4, 3, 1, 2)                      # (dx, dy, pi, pj)
 
 
@@ -92,6 +101,43 @@ def patch_corr_pyramid(gmap, pyramid, coords, kk, jj, radius=RADIUS,
                              valid=valid, chunk=chunk)
             for fmap, s in zip(pyramid, levels)]
     return torch.stack(outs, dim=-1).reshape(E, -1)
+
+
+def window_starts(coords):
+    """Window starts (ys, xs) [e, 9] of coords [e, 3, 3, 2] at a level's
+    scale, as the kernels compute them: NaN and +-inf clamped to
+    +-COORD_LIM before the floor."""
+    e = coords.shape[0]
+    c = torch.nan_to_num(coords, nan=COORD_LIM, posinf=COORD_LIM,
+                         neginf=-COORD_LIM).clamp(-COORD_LIM, COORD_LIM)
+    ys = torch.floor(c[..., 1]).long().reshape(e, 9) - RADIUS
+    xs = torch.floor(c[..., 0]).long().reshape(e, 9) - RADIUS
+    return ys, xs
+
+
+def box_plan(coords, H, W):
+    """The correlation kernel's plan for one level (`csrc/corr_box.cu`):
+    coords [e, 3, 3, 2] at the level's scale, map H x W ->
+    (cls [e, 9]: 0 window off the map, 1 taken from the staged box, 2
+    taken per pixel from the map; box [e, 4]: y0, x0, h, w of the staged
+    box, all 0 when no window overlaps the map).
+
+    The box origin is the least window start of the pixels that overlap
+    the map; a pixel is in the box when its window lies within BOX x BOX
+    positions from there; the staged box is the union of those windows."""
+    D = 2 * RADIUS + 2
+    ys, xs = window_starts(coords)
+    on = (ys > -D) & (ys < H) & (xs > -D) & (xs < W)
+    big = torch.iinfo(torch.long).max
+    y0 = torch.where(on, ys, big).min(1).values
+    x0 = torch.where(on, xs, big).min(1).values
+    inbox = on & (ys - y0[:, None] <= BOX - D) & (xs - x0[:, None] <= BOX - D)
+    cls = torch.where(inbox, 1, torch.where(on, 2, 0))
+    any_on = on.any(1)
+    h = torch.where(inbox, ys + D, y0[:, None]).max(1).values - y0
+    w = torch.where(inbox, xs + D, x0[:, None]).max(1).values - x0
+    box = torch.stack([y0, x0, h, w], 1)
+    return cls, torch.where(any_on[:, None], box, 0)
 
 
 class KernelArgs:
@@ -136,10 +182,10 @@ def corr_lookup(gmap, pyramid, coords, kk, jj, valid, chunk=2048,
     level-1 scale; kk in [0, S) and jj in [0, F); valid [E] bool.
 
     Unfused: the plain version (in blocks of `chunk` edges) for CPU
-    tensors, the exact per-pixel-window kernel (`csrc/corr.cu`) for CUDA
-    tensors. fused=True: the region route of `variant`
-    (`ops/corr_region.py`, whose plain version blocks by its own `CHUNK`),
-    which computes the same function.
+    tensors, the correlation body of `csrc/corr_box.cu` for CUDA tensors.
+    fused=True: the region route of `variant` (`ops/corr_region.py`, whose
+    plain version blocks by its own `CHUNK`), which computes the same
+    function.
     """
     if fused:
         from .corr_region import region_corr_pyramid

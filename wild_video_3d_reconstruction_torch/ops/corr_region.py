@@ -18,10 +18,12 @@ pixel whose window does not fit the region but overlaps the map (the TPU
 kernels zero it) takes the spill path: its window is computed directly
 from the map. The region geometry decides only which pixels spill.
 
-  * `region_corr_pyramid`: the entry point. `fused=True` runs one kernel
-    (`csrc/corr_region.cu`, #4 for x32 and #5 for x16); `fused=False,
-    extract="kernel"` (x16) runs the split pair, surfaces to device memory
-    and then the window selection (#6, `_extract_kernel4`).
+  * `region_corr_pyramid`: the entry point. `fused=True` runs one launch
+    of the correlation body of `csrc/corr_box.cu` (which replaces #4, x32,
+    and #5, x16; it stages its own box, so the region geometry decides
+    only the spill flags); `fused=False, extract="kernel"` (x16) runs the
+    split pair of `csrc/corr_region.cu`, surfaces to device memory and
+    then the window selection (#6, `_extract_kernel4`).
   * `region_surfaces`, `region_extract`, `region_corr_fused`: the kernel
     wrappers. On CPU tensors they run the plain versions below; when any
     tensor is on the card they launch their kernel or raise.
@@ -38,13 +40,12 @@ from __future__ import annotations
 import torch
 
 from . import _native
-from .corr import LEVELS, RADIUS, KernelArgs
+from .corr import LEVELS, RADIUS, KernelArgs, window_starts
 
 RH = 16                        # region rows
 REGION_W = {"x32": 32, "x16": 16}
 WIN = 2 * RADIUS + 2           # raw window side (8)
 PAD = 8                        # the JAX package's map padding (x32 phase)
-COORD_LIM = 1e6                # coordinates are clamped here before floor
 NP = 9                         # patch pixels
 CHUNK = 512                    # edges per block of the plain versions
 
@@ -54,11 +55,7 @@ def geometry(coords, variant, H, W):
     scale -> window starts ys, xs [e, 9], region origin oy, ox [e], and
     the masks fits (window inside the region) and spill (outside it but
     overlapping the map) [e, 9]."""
-    e = coords.shape[0]
-    c = torch.nan_to_num(coords, nan=COORD_LIM, posinf=COORD_LIM,
-                         neginf=-COORD_LIM).clamp(-COORD_LIM, COORD_LIM)
-    ys = torch.floor(c[..., 1]).long().reshape(e, NP) - RADIUS
-    xs = torch.floor(c[..., 0]).long().reshape(e, NP) - RADIUS
+    ys, xs = window_starts(coords)
     oy = ys.min(1).values
     ox = xs.min(1).values
     if variant == "x32":
@@ -195,7 +192,8 @@ def region_corr_plain(gmap, pyramid, coords, kk, jj, valid, variant):
 
 def region_corr_fused(gmap, pyramid, coords, kk, jj, valid, variant):
     """([E, 882] fp32, spilled [E] bool): the plain version for CPU
-    tensors, the fused kernel of `variant` for CUDA tensors."""
+    tensors, the correlation body (`csrc/corr_box.cu`) with the spill
+    flags of `variant`'s region for CUDA tensors."""
     if not _native.on_cuda(gmap, *pyramid, coords):
         return region_corr_plain(gmap, pyramid, coords, kk, jj, valid,
                                  variant)

@@ -17,7 +17,8 @@ frames two ways:
 
 Prints one JSON object per config and, with --out, writes it there with
 the top 25 kernels. --fused runs each config with `PALLAS_FUSED: true`
-(the region correlation kernels). Needs CUDA; fails without it.
+(the fused entry of the same correlation body, with the region spill
+flags). Needs CUDA; fails without it.
 """
 
 from __future__ import annotations

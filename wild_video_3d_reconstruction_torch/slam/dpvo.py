@@ -34,6 +34,26 @@ from . import steps
 from .state import WARMUP, SLAMState, init_state
 
 
+# Config values whose behaviour the JAX package has and the port does not
+# yet: (key, its default, the ROADMAP Queue 1 item that ports it).
+# USE_DISTANCE_EDGES is read only by global BA (JAX `slam/global_ba.py:70`),
+# so ENABLE_GLOBAL_BA's check covers it. Keys that change no result
+# (PIPELINE_CHUNK, EDGE_TIERS, PALLAS_CORR, PALLAS_HYBRID_BUDGET) stay
+# accepted.
+NOT_PORTED = (("PATCH_SELECTOR", "random", 20),
+              ("ENABLE_GLOBAL_BA", False, 11),
+              ("loop_enabled", False, 12))
+
+
+def _check_ported(cfg):
+    for key, default, item in NOT_PORTED:
+        value = getattr(cfg, key)
+        if value != default:
+            raise NotImplementedError(
+                f"{key}: {value!r} is not ported yet (ROADMAP Queue 1 item "
+                f"{item}); the port runs only {key}: {default!r}")
+
+
 class DPVO:
     WARMUP = WARMUP
 
@@ -43,6 +63,7 @@ class DPVO:
         package's parameter tree (nested dicts of numpy arrays), or None
         for weights drawn from `seed`. device: "cuda" unless the caller
         asks for the CPU."""
+        _check_ported(cfg)
         self.cfg = cfg
         self.ht, self.wd = ht, wd
         self.M = cfg.PATCHES_PER_FRAME

@@ -41,16 +41,15 @@ class DPVOConfig:
     MEM: int = 36
     # edge chunk of the unfused plain correlation (`corr_lookup`)
     CORR_CHUNK: int = 4096
-    # Correlation route, as in the JAX package's `slam/steps.py`: unfused
-    # (either variant) runs the exact per-pixel-window kernel
-    # (`csrc/corr.cu`); PALLAS_FUSED runs the region kernel of
-    # PALLAS_VARIANT (`csrc/corr_region.cu`: x32 = 16x32 regions with the
-    # x origin aligned to 16, x16 = 16x16 regions at the exact origin).
-    # Both routes are exact. PALLAS_CORR and PALLAS_HYBRID_BUDGET are
+    # Correlation route, as in the JAX package's `slam/steps.py`. Both
+    # routes launch the one exact correlation body (`csrc/corr_box.cu`);
+    # PALLAS_FUSED also returns the spill flags of PALLAS_VARIANT's region
+    # (x32 = 16x32 regions with the x origin aligned to 16, x16 = 16x16
+    # regions at the exact origin). PALLAS_CORR and PALLAS_HYBRID_BUDGET are
     # accepted and change nothing: the port has no gather-free TPU path
-    # to switch off, and its region kernels compute the pixels that do
-    # not fit their region exactly, so no clipped edges are left for a
-    # hybrid pass to recompute.
+    # to switch off, and the body computes the pixels that do not fit the
+    # region exactly, so no clipped edges are left for a hybrid pass to
+    # recompute.
     PALLAS_CORR: bool = True
     PALLAS_FUSED: bool = False
     PALLAS_VARIANT: str = "x32"

@@ -40,7 +40,7 @@ from wild_video_3d_reconstruction_torch.ops import corr_region as tregion
 from wild_video_3d_reconstruction_torch.ops.corr import (
     LEVELS, box_plan, corr_lookup, patch_corr_pyramid)
 from wild_video_3d_reconstruction_torch.ops.segment import (
-    run_segment_sum_sorted, run_segment_sum_sorted_plain)
+    run_first_rows, run_segment_sum_sorted, run_segment_sum_sorted_plain)
 from wild_video_3d_reconstruction_torch.slam import DPVO, steps
 from wild_video_3d_reconstruction_torch.utils.config import (
     DPVOConfig, load_config)
@@ -96,6 +96,24 @@ def time_ms(fn, reps=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, reps=20, warmup=3):
+    """Time per call of `reps` calls back to back between two CUDA events.
+    Unlike `time_ms`, the host's work in one call overlaps the device's
+    work of the one before, so the reading leaves out the host time that
+    `time_ms` counts, unless the host is the slower of the two."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def nbytes(*ts):
@@ -389,7 +407,10 @@ def kernel_runsum(gen):
     rel = err / max(ref.abs().max().item(), 1e-30)
     finite = bool(torch.isfinite(out).all())
     ms = time_ms(lambda: run_segment_sum_sorted(fes, seg))
+    ms_b2b = back_to_back_ms(lambda: run_segment_sum_sorted(fes, seg))
     plain_ms = time_ms(lambda: run_segment_sum_sorted_plain(fes, seg))
+    # every row of a run holds the bitwise same total as the run's first
+    same_in_run = bool(torch.equal(out, out[run_first_rows(seg)]))
     start = torch.ones(E, dtype=torch.bool, device=DEV)
     start[1:] = seg[1:] != seg[:-1]
     run = torch.cumsum(start.long(), 0) - 1
@@ -400,14 +421,16 @@ def kernel_runsum(gen):
         name="runsum", route="cuda",
         source="wild_video_3d_reconstruction_torch/csrc/runsum.cu",
         replaces="wild_video_3d_reconstruction_tpu/ops/pallas_segsum.py:38",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, ms_back_to_back=ms_b2b, plain_ms=plain_ms,
         # fp32 adds outside the tensor cores
         **bound(n_bytes, E * D, FP32_FLOPS), library_ms=lib_ms)
     emit("kernels", E=E, D=D, rel_err=rel, tol_rel=TOL_RUNSUM_REL,
-         finite=finite, bytes=n_bytes, **row)
-    if not finite or not rel <= TOL_RUNSUM_REL:
+         finite=finite, bitwise_same_total_in_run=same_in_run,
+         bytes=n_bytes, **row)
+    if not finite or not rel <= TOL_RUNSUM_REL or not same_in_run:
         fail(f"runsum kernel disagrees with its plain version: relative "
-             f"err {rel} > {TOL_RUNSUM_REL}")
+             f"err {rel} (tol {TOL_RUNSUM_REL}), bitwise same total in "
+             f"every run: {same_in_run}")
     return row
 
 
@@ -489,6 +512,7 @@ def kernel_region_split(gen):
         finite = bool(torch.isfinite(out).all() and torch.isfinite(surf).all())
         ms_s = time_ms(lambda: tregion.region_surfaces(*args))
         ms_x = time_ms(lambda: tregion.region_extract(surf, *args))
+        b2b_x = back_to_back_ms(lambda: tregion.region_extract(surf, *args))
         torch.cuda.empty_cache()
         plain_s = time_ms(lambda: tregion.region_surfaces_plain(*args),
                           reps=3, warmup=1)
@@ -502,7 +526,8 @@ def kernel_region_split(gen):
                    **bound(b_s, flops_s, BF16_FLOPS), library_ms=None)
         r_x = dict(name="corr_region_extract", route="cuda",
                    source=REGION_SOURCE, replaces=f"{PALLAS_CORR}:230",
-                   max_abs_err=err_x, ms=ms_x, plain_ms=plain_x,
+                   max_abs_err=err_x, ms=ms_x, ms_back_to_back=b2b_x,
+                   plain_ms=plain_x,
                    **bound(b_x, flops_x, FP32_FLOPS), library_ms=None)
         for r, b, f in ((r_s, b_s, flops_s), (r_x, b_x, flops_x)):
             emit("kernels", shapes="default", E=E_KERNEL,

@@ -14,9 +14,7 @@ fast-config (E = 7 168) shapes, on compact patches and on patches spread
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -26,41 +24,26 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+import kernel_variants  # noqa: E402
 from wild_video_3d_reconstruction_torch.ops import _native  # noqa: E402
 from wild_video_3d_reconstruction_torch.ops import corr as tcorr  # noqa: E402
 
-SOURCE = ROOT / "wild_video_3d_reconstruction_torch" / "csrc" / "corr_box.cu"
 OUT = ROOT / "build" / "corr_box_capacity"
 BLOCKS_PER_SM = {16: 3, 13: 4, 12: 5}   # bf16 blocks that fit an SM's smem
 
 
 def build_variants():
-    src = SOURCE.read_text()
-    box_line = f"constexpr int kBox = {tcorr.BOX};"
+    src = (kernel_variants.CSRC / "corr_box.cu").read_text()
     bounds = f"? {BLOCKS_PER_SM[tcorr.BOX]}\n"
-    if box_line not in src or bounds not in src:
+    if bounds not in src:
         raise RuntimeError("corr_box.cu no longer has the lines this script "
                            "edits")
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for box, blocks in BLOCKS_PER_SM.items():
-        cu = OUT / f"corr_box_{box}.cu"
-        cu.write_text(src.replace(box_line, f"constexpr int kBox = {box};")
-                      .replace(bounds, f"? {blocks}\n"))
-        lib = OUT / f"libcorr_box_{box}.so"
-        procs[box] = (lib, subprocess.Popen(
-            [_native._nvcc(), *_native.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for box, (lib, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for kBox = {box}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).wv3d_corr_pyramid
-        fn.argtypes = _native._SIGNATURES["wv3d_corr_pyramid"]
-        fn.restype = ctypes.c_int
-        fns[box] = fn
-    return fns
+    fns = kernel_variants.build(
+        {box: kernel_variants.set_constants(src, {"kBox": box})
+         .replace(bounds, f"? {blocks}\n")
+         for box, blocks in BLOCKS_PER_SM.items()},
+        "wv3d_corr_pyramid", OUT)
+    return {box: fn for box, (fn, _) in fns.items()}
 
 
 def main():

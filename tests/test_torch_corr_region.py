@@ -257,3 +257,15 @@ def test_split_surfaces_are_the_region_products():
 def test_route_arguments_are_checked(kw):
     with pytest.raises(ValueError):
         tregion.region_corr_pyramid(*to_t(make_case(9, E=4)), **kw)
+
+
+def test_extract_surfaces_are_checked():
+    """The extract kernel takes x16 surfaces [E, 2, 9, 16, 16] in fp32."""
+    tregion.check_surfaces("extract", torch.zeros(5, 2, 9, 16, 16), 5)
+    with pytest.raises(ValueError):              # one edge short
+        tregion.check_surfaces("extract", torch.zeros(4, 2, 9, 16, 16), 5)
+    with pytest.raises(ValueError):              # x32 surfaces
+        tregion.check_surfaces("extract", torch.zeros(5, 2, 9, 16, 32), 5)
+    with pytest.raises(TypeError):               # bf16 surfaces
+        tregion.check_surfaces("extract", torch.zeros(
+            5, 2, 9, 16, 16, dtype=torch.bfloat16), 5)

@@ -19,6 +19,8 @@ from wild_video_3d_reconstruction_torch.ops import segment as tseg
 
 pytestmark = pytest.mark.cuda
 
+TOL_CORR_ABS = 1e-2
+
 
 @pytest.fixture
 def cuda_device():
@@ -72,35 +74,96 @@ def test_corr_kernel_rejects_what_it_cannot_take(cuda_device):
         tcorr.corr_lookup(g, pyr, *args)        # 64 channels, not 128
 
 
+def check_runsum(out, ref, seg):
+    """Within 1e-5 of the largest total (fp32 sums in another order), and
+    every row of a run holds the bitwise same total."""
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * max(ref.abs().max().item(), 1e-30)
+    assert torch.equal(out, out[tseg.run_first_rows(seg)])
+
+
+def run_runsum(fes, seg):
+    n0 = _native.LAUNCHES["runsum"]
+    out = tseg.run_segment_sum_sorted(fes, seg)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["runsum"] == n0 + 1
+    check_runsum(out, tseg.run_segment_sum_sorted_plain(fes, seg), seg)
+
+
 @pytest.mark.parametrize("tail", [0, 8000])
 def test_runsum_kernel_matches_plain(cuda_device, tail):
     """csrc/runsum.cu against the plain version: runs of 1..28 rows
-    across the kernel's 64-row tiles, with and without a long trailing
-    run (the sentinel run of invalid rows); within 1e-5 of the largest
-    total (fp32 sums in another order)."""
+    across the kernel's tiles, with and without a long trailing run (the
+    sentinel run of invalid rows); within 1e-5 of the largest total (fp32
+    sums in another order), bitwise equal totals within a run."""
     rng = np.random.default_rng(2)
     E, D = 55296, 768
     seg = np.repeat(np.arange(E), rng.integers(1, 29, E))[:E]
     if tail:
         seg[-tail:] = seg[-tail - 1] + 1
     fes = torch.from_numpy(rng.normal(size=(E, D)).astype(np.float32))
-    fes = fes.to(cuda_device)
-    seg = torch.from_numpy(seg).to(cuda_device)
-    n0 = _native.LAUNCHES["runsum"]
-    out = tseg.run_segment_sum_sorted(fes, seg)
-    torch.cuda.synchronize()
-    assert _native.LAUNCHES["runsum"] == n0 + 1
-    ref = tseg.run_segment_sum_sorted_plain(fes, seg)
-    err = (out - ref).abs().max().item()
-    assert err <= 1e-5 * ref.abs().max().item()
-    # every row of a run holds the bitwise same total
-    start = torch.ones(E, dtype=torch.bool, device=cuda_device)
-    start[1:] = seg[1:] != seg[:-1]
-    run = torch.cumsum(start.long(), 0) - 1
-    first = torch.zeros(int(run[-1]) + 1, dtype=torch.long,
-                        device=cuda_device)
-    first[run.flip(0)] = torch.arange(E - 1, -1, -1, device=cuda_device)
-    assert torch.equal(out, out[first[run]])
+    run_runsum(fes.to(cuda_device), torch.from_numpy(seg).to(cuda_device))
+
+
+RUNSUM_CASES = ("run_is_one_tile", "runs_cross_one_boundary",
+                "runs_cross_several_boundaries", "rows_not_whole_tiles",
+                "one_row", "sentinel_at_end", "sentinel_at_start",
+                "narrow_rows")
+
+
+def runsum_case(case, seed=11):
+    """(fes [E, D], seg [E]) of one of the run-sum kernel's edge cases, at
+    its tile of wv3d_runsum_tile() rows."""
+    rng = np.random.default_rng(seed)
+    T = _native.lib().wv3d_runsum_tile()
+    E, D = 64 * T, 768
+    lens = rng.integers(1, 29, E)
+    if case == "run_is_one_tile":
+        lens = np.full(E, T)                       # runs = tiles exactly
+    elif case == "runs_cross_one_boundary":
+        lens = rng.integers(T // 2 + 1, T + T // 2, E)
+    elif case == "runs_cross_several_boundaries":
+        lens = rng.integers(2 * T + 1, 5 * T, E)
+    elif case == "rows_not_whole_tiles":
+        E = 64 * T - 37
+    elif case == "one_row":
+        E = 1
+    elif case == "narrow_rows":
+        D = 36                                     # part of a column block
+    seg = np.repeat(np.arange(E), lens[:E])[:E]
+    if case == "sentinel_at_end":
+        seg[-8000:] = seg[-8001] + 1
+    elif case == "sentinel_at_start":
+        # the key of rows before the first valid row in
+        # segment_softmax_weighted_sum_runsum
+        seg[:8000] = -1
+    fes = rng.normal(size=(E, D)).astype(np.float32)
+    return fes, seg
+
+
+@pytest.mark.parametrize("case", RUNSUM_CASES)
+def test_runsum_kernel_edge_cases(cuda_device, case):
+    """The run-sum's tile boundaries and long runs, against the plain
+    version with the tolerance and bitwise check above."""
+    fes, seg = runsum_case(case)
+    run_runsum(torch.from_numpy(fes).to(cuda_device),
+               torch.from_numpy(seg).to(cuda_device))
+
+
+def test_runsum_kernel_rejects_what_it_cannot_take(cuda_device):
+    fes = torch.zeros(64, 6, device=cuda_device)
+    seg = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):              # D not a multiple of 4
+        tseg.run_segment_sum_sorted(fes, seg)
+    with pytest.raises(ValueError):              # one key short
+        tseg.run_segment_sum_sorted(torch.zeros(64, 8, device=cuda_device),
+                                    seg[:63])
+    with pytest.raises(ValueError):              # keys on the CPU
+        tseg.run_segment_sum_sorted(torch.zeros(64, 8, device=cuda_device),
+                                    seg.cpu())
+    with pytest.raises(ValueError):              # rows not 16-byte aligned
+        tseg.run_segment_sum_sorted(
+            torch.zeros(65 * 8, device=cuda_device)[1:513].view(64, 8), seg)
 
 
 def _to_dev(case, dev, dtype):
@@ -155,6 +218,86 @@ def test_region_split_kernels_match_plain(cuda_device, dtype):
     assert torch.equal(spill, ref_spill) and bool(spill.any())
 
 
+EXTRACT_CASES = ("spill_level0_only", "spill_level1_only", "invalid_edges",
+                 "map_border")
+
+
+def extract_case(case, seed=13):
+    """Inputs of one of the extract kernel's edge cases (numpy), on 96x128
+    and 24x32 maps."""
+    if case == "spill_level0_only":
+        # pixels jittered by up to 5 px: windows up to 12 apart at level 1
+        # (some spill), at most 4 apart at level 2 (all fit)
+        return corr_case(seed, E=1024, spread=10.0)
+    if case == "invalid_edges":
+        gmap, fmaps, coords, kk, jj, _ = corr_case(seed, E=1024,
+                                                   spread=10.0)
+        valid = np.random.default_rng(seed).random(1024) > 0.5
+        return gmap, fmaps, coords, kk, jj, valid
+    if case == "map_border":
+        # 1003 edges (not a multiple of the edges per block), centres
+        # within 4 px of a border at level 1, compact or spread
+        gmap, fmaps, coords, kk, jj, valid = corr_case(seed, E=1003,
+                                                       spread=1.0)
+        rng = np.random.default_rng(seed)
+        E = coords.shape[0]
+        near = lambda n, hi: np.where(rng.random(n) < 0.5,
+                                      rng.uniform(-4, 4, n),
+                                      rng.uniform(hi - 4, hi + 4, n))
+        cx = np.where(rng.random(E) < 0.5, near(E, 128),
+                      rng.uniform(0, 128, E))
+        cy = np.where(rng.random(E) < 0.5, near(E, 96),
+                      rng.uniform(0, 96, E))
+        spread = np.where(rng.random(E) < 0.5, 1.0, 6.0)
+        off = np.arange(3) - 1.0
+        x = cx[:, None, None] + spread[:, None, None] * off[None, None, :]
+        y = cy[:, None, None] + spread[:, None, None] * off[None, :, None]
+        x = x + rng.uniform(-0.5, 0.5, (E, 3, 3))
+        y = y + rng.uniform(-0.5, 0.5, (E, 3, 3))
+        return (gmap, fmaps, np.stack([x, y], -1).astype(np.float32), kk, jj,
+                valid)
+    # spill_level1_only: eight pixels left of the map at level 1 (windows
+    # off it), one right of it; at level 2 all nine overlap the map and
+    # the right one lies 36 columns from the others, past the region
+    gmap, fmaps, coords, kk, jj, valid = corr_case(seed, E=1024)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-15.9, -4.1, size=coords.shape[:3])
+    x[:, 2, 2] = rng.uniform(128 + 3.1, 128 + 3.9, size=coords.shape[0])
+    y = rng.uniform(8.0, 88.0, size=coords.shape[:3])
+    return gmap, fmaps, np.stack([x, y], -1).astype(np.float32), kk, jj, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", EXTRACT_CASES)
+def test_region_extract_edge_cases(cuda_device, case, dtype):
+    """The extract kernel (#6) against the plain extract on the same
+    surfaces and against the fused plain version, within 1e-2 absolute
+    (fp32 sums of 128 products, other order), with equal spill flags; the
+    case's spill pattern is checked on the geometry."""
+    g, pyr, c, k, j, v = _to_dev(extract_case(case), cuda_device, dtype)
+    surf = tregion.region_surfaces(g, pyr, c, k, j, v)
+    n0 = _native.LAUNCHES["corr_region_extract"]
+    out, spill = tregion.region_extract(surf, g, pyr, c, k, j, v)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["corr_region_extract"] == n0 + 1
+    ref, ref_spill = tregion.region_extract_plain(surf, g, pyr, c, k, j, v)
+    torch.testing.assert_close(out, ref, rtol=0, atol=TOL_CORR_ABS)
+    assert torch.equal(spill, ref_spill)
+    full, _ = tregion.region_corr_plain(g, pyr, c, k, j, v, "x16")
+    torch.testing.assert_close(out, full, rtol=0, atol=TOL_CORR_ABS)
+    vb = v.bool()
+    spills = [bool(tregion.geometry(c[vb] / s, "x16", f.shape[1],
+                                    f.shape[2])[5].any())
+              for f, s in zip(pyr, tcorr.LEVELS)]
+    if case == "spill_level0_only":
+        assert spills == [True, False]
+    elif case == "spill_level1_only":
+        assert spills == [False, True]
+    elif case == "invalid_edges":
+        assert not bool(out[~vb].any()) and not bool(spill[~vb].any())
+        assert bool(spill.any())
+
+
 def test_region_map_smaller_than_region(cuda_device):
     """A 3x4 level-2 map (the tiny slice's) is smaller than either region:
     zeros off the map, exact against the oracle in fp32."""
@@ -181,9 +324,12 @@ def test_region_kernels_reject_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError):              # surfaces on the CPU
         tregion.region_extract(torch.zeros(64, 2, 9, 16, 16), g, pyr, c, k,
                                j, v)
+    n = 64 * 2 * 9 * 16 * 16
+    surf = torch.zeros(n + 1, device=cuda_device)[1:].view(64, 2, 9, 16, 16)
+    with pytest.raises(ValueError):              # surfaces not 16-byte aligned
+        tregion.region_extract(surf, g, pyr, c, k, j, v)
 
 
-TOL_CORR_ABS = 1e-2
 BOX_CASES = ("box_at_capacity", "box_beyond_capacity", "mixed_box_per_pixel",
              "one_edge", "ragged_blocks", "tiny_map", "nan_and_huge",
              "all_invalid")

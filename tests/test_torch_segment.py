@@ -125,6 +125,39 @@ def test_run_segment_sum_wrapper_on_cpu():
     assert _native.LAUNCHES == before
 
 
+@pytest.mark.parametrize("E,rows", [(0, 0), (1, 1), (128, 1), (129, 2),
+                                    (55296, 432)])
+def test_runsum_scratch_rows(E, rows):
+    """One partial-sum row per tile (128 rows here), the last tile
+    ragged."""
+    assert tseg.runsum_scratch_rows(torch.zeros(E, 768),
+                                    torch.zeros(E, dtype=torch.int32),
+                                    128) == rows
+
+
+@pytest.mark.parametrize("fes_shape,seg_len", [((64, 6), 64), ((64,), 64),
+                                               ((64, 8), 63)],
+                         ids=["D-not-multiple-of-4", "fes-1d", "seg-short"])
+def test_runsum_scratch_rows_rejects(fes_shape, seg_len):
+    with pytest.raises(ValueError):
+        tseg.runsum_scratch_rows(torch.zeros(fes_shape),
+                                 torch.zeros(seg_len, dtype=torch.int32), 128)
+
+
+def test_run_first_rows():
+    """The first row of each run, against a loop over the rows."""
+    rng = np.random.default_rng(5)
+    seg = np.repeat(rng.integers(-1, 6, 40), rng.integers(1, 5, 40))
+    want, first = [], 0
+    for i in range(len(seg)):
+        if i and seg[i] != seg[i - 1]:
+            first = i
+        want.append(first)
+    got = tseg.run_first_rows(torch.from_numpy(seg))
+    assert got.tolist() == want
+    assert tseg.run_first_rows(torch.zeros(0, dtype=torch.int32)).numel() == 0
+
+
 def test_run_segment_sum_matches_jax_kernel_on_short_runs(interpret_mode):
     """Where every run is shorter than the TPU kernel's band, the port's
     exact run totals equal the banded sums of the Pallas kernel."""

@@ -16,26 +16,48 @@
 // Region geometry (per edge and level): the nine window starts (ys, xs);
 // the region origin oy = min ys, ox = min xs (the x16 geometry, the only
 // one these kernels serve); a pixel fits when its window lies inside the
-// 16 x RW region. The TPU kernels zero the pixels that do
-// not fit; here a pixel that does not fit but overlaps the map takes the
-// spill path, its window computed straight from the map, so the result is
-// exact for any spread. The region never needs a padded map: positions off
-// the map read as zero.
+// 16 x 16 region. The TPU kernels zero the pixels that do not fit; here a
+// pixel that does not fit but overlaps the map takes the spill path, its
+// window computed straight from the map, so the result is exact for any
+// spread. Positions off the map read as zero.
 //
-// Design. The surfaces kernel: one block per edge, one thread per region
-// position (16 x 16). The 9x128 patch features sit in shared memory as
-// fp32. The region is staged in shared memory one 32-channel chunk at a
-// time (16-byte loads, fp32, a padded stride of 36 floats so that the
-// 16-byte reads of neighbouring positions hit distinct banks); each thread
-// accumulates its position's nine surface values in registers (fp32 SIMT
-// FMAs, the patch features read as broadcasts) and writes the full 16x16
-// surfaces of both levels to device memory. The extract kernel (576
-// threads, one per pixel and window position) selects from them, computes
-// the spill windows and blends.
+// The surfaces kernel (`region_kernel`): one block per edge, one thread
+// per region position. The 9x128 patch features sit in shared memory as
+// fp32; the region is staged one 32-channel chunk at a time (16-byte
+// loads, a padded stride); each thread forms its position's nine surface
+// values with fp32 FMAs and writes the surfaces of both levels. It moves
+// 18 KB of fp32 surfaces per edge to device memory by design.
 //
-// Bound. The pair moves the fp32 surfaces (18 KB per edge) through device
-// memory twice by design; beyond that, the fmaps and gmap read once and
-// 3.5 KB of output per edge.
+// The extract kernel (`extract_kernel`). Bound: device-memory bytes, the
+// 8x8 surface window of each fitting pixel, the map and the patch features
+// only for spilled pixels, and the 3.5 KB of output per edge (0.132 ms at
+// E = 55 296 on compact patches); its blend is a few FLOPs per byte. The
+// surfaces are read in 32-byte sectors, so a window row that straddles
+// the middle of its 64-byte region row moves 64 bytes for its 32. A
+// spilled pixel reads its 8x8 map window, 16 KB in bf16, mostly from L2.
+// Design:
+//  * one warp per edge and per block, no block barrier, no serial step:
+//    the valid flag and the coordinates load together;
+//  * the geometry in parallel: lane l * 9 + p computes pixel p at level l,
+//    the region origins are warp min-reductions, the fit and spill flags
+//    ballots, shared by shuffles;
+//  * a fitting window's 8 region rows are 512 contiguous bytes of the
+//    surfaces: one 16-byte load per lane and window. No load sits behind
+//    a branch, so all 18 issue before the first is used (9 KB in flight
+//    per warp): a lane whose 16 bytes hold no window column reads a
+//    neighbour's (same sectors), a window that does not fit reads one
+//    fixed address and is zeroed by a select; the select of the window is
+//    an offset into shared memory;
+//  * spilled pixels only: each lane owns 4 of the 128 channels, so each of
+//    the window's 64 map positions is one coalesced row read; positions
+//    off the map read a clamped position and are zeroed by a select, so
+//    the 32 row loads of a half window all issue before the first product;
+//    a transpose-sum over the warp (31 shuffles per 32 positions) gives the
+//    products; the pixel's patch features are read only then;
+//  * the blend from shared memory into registers, both levels of an
+//    output pair at once, unrolled, written as coalesced 8-byte stores
+//    (the [E, 882] rows are 8-byte aligned; a warp writes 256 contiguous
+//    bytes per store).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,7 +75,6 @@ constexpr int kOut = kDO * kDO * kNP * 2;  // 882
 constexpr int kRH = 16;                    // region rows
 constexpr int kCH = 32;                    // channels staged per pass
 constexpr int kCS = kCH + 4;               // staged floats per position
-constexpr int kWinThreads = kNP * kD * kD; // 576
 constexpr float kCoordLim = 1e6f;
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -84,74 +105,15 @@ __device__ __forceinline__ float clamp_coord(float v) {
   return v != v ? kCoordLim : fminf(fmaxf(v, -kCoordLim), kCoordLim);
 }
 
-// The geometry of one edge at one level, written by one thread.
-struct Geo {
-  int ys[kNP], xs[kNP];      // window starts
-  float fx[kNP], fy[kNP];    // blend weights
-  int fit[kNP], spill[kNP];
-  int oy, ox;                // region origin
-  int any_spill;
-};
-
-template <int RW>
-__device__ void edge_geometry(const float* cp, float s, int H, int W,
-                              Geo& g) {
+// The region origin of one edge at one level, the minimum window start of
+// its nine pixels (oy, ox), written by one thread.
+__device__ void region_origin(const float* cp, float s, int2& o) {
   int oy = INT_MAX, ox = INT_MAX;
   for (int p = 0; p < kNP; ++p) {
-    const float x = cp[2 * p] / s;
-    const float y = cp[2 * p + 1] / s;
-    g.fx[p] = x - floorf(x);
-    g.fy[p] = y - floorf(y);
-    g.ys[p] = static_cast<int>(floorf(clamp_coord(y))) - kR;
-    g.xs[p] = static_cast<int>(floorf(clamp_coord(x))) - kR;
-    oy = min(oy, g.ys[p]);
-    ox = min(ox, g.xs[p]);
+    oy = min(oy, static_cast<int>(floorf(clamp_coord(cp[2 * p + 1] / s))));
+    ox = min(ox, static_cast<int>(floorf(clamp_coord(cp[2 * p] / s))));
   }
-  int any = 0;
-  for (int p = 0; p < kNP; ++p) {
-    const int fit = g.ys[p] - oy <= kRH - kD && g.xs[p] - ox <= RW - kD;
-    const int over = g.ys[p] > -kD && g.ys[p] < H && g.xs[p] > -kD &&
-                     g.xs[p] < W;
-    g.fit[p] = fit;
-    g.spill[p] = over && !fit;
-    any |= g.spill[p];
-  }
-  g.oy = oy;
-  g.ox = ox;
-  g.any_spill = any;
-}
-
-// <g, fmap[j, y, x]> straight from the map (the spill path); 0 off the map
-template <typename T>
-__device__ float window_dot(const T* fmap, int j, int H, int W, int y, int x,
-                            const float* g) {
-  if (y < 0 || y >= H || x < 0 || x >= W) return 0.0f;
-  const T* row = fmap + ((static_cast<size_t>(j) * H + y) * W + x) * kC;
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int c = 0; c < kC; c += 8) {
-    float f[8];
-    load8(row + c, f);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc = fmaf(f[q], g[c + q], acc);
-  }
-  return acc;
-}
-
-// 441 blended outputs of one level from the raw windows w_s [9][8][8]
-__device__ void blend(const float* w_s, const Geo& geo, int l, float* o_s,
-                      int t, int nthreads) {
-  for (int i = t; i < kDO * kDO * kNP; i += nthreads) {
-    // output index i = (dx * 7 + dy) * 9 + pixel
-    const int dx = i / (kDO * kNP);
-    const int dy = (i / kNP) % kDO;
-    const int p = i % kNP;
-    const float fx = geo.fx[p], fy = geo.fy[p];
-    const float* c = w_s + p * kD * kD + dy * kD + dx;
-    o_s[2 * i + l] = (1.0f - fx) * (1.0f - fy) * c[0] +
-                     fx * (1.0f - fy) * c[1] + (1.0f - fx) * fy * c[kD] +
-                     fx * fy * c[kD + 1];
-  }
+  o = make_int2(oy - kR, ox - kR);
 }
 
 template <typename T>
@@ -176,7 +138,7 @@ region_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
   extern __shared__ float4 dyn_smem[];
   float* g_s = reinterpret_cast<float*>(dyn_smem);  // [9][128]
   float* reg_s = g_s + kNP * kC;                     // [kPos][kCS]
-  __shared__ Geo geo;
+  __shared__ int2 origin;
 
   const int e = blockIdx.x;
   const int t = threadIdx.x;
@@ -194,9 +156,9 @@ region_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
     const int H = l ? H2 : H1;
     const int W = l ? W2 : W1;
     __syncthreads();  // g_s written; the previous level's smem consumed
-    if (t == 0) edge_geometry<RW>(cp, l ? 4.0f : 1.0f, H, W, geo);
+    if (t == 0) region_origin(cp, l ? 4.0f : 1.0f, origin);
     __syncthreads();
-    const int oy = geo.oy, ox = geo.ox;
+    const int oy = origin.x, ox = origin.y;
 
     float acc[kNP];
 #pragma unroll
@@ -239,10 +201,166 @@ region_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
   }
 }
 
-// The split pair's second kernel: windows from x16 surfaces
-// [E, 2, 9, 16, 16], spill windows from the map, the blend.
+// 4 bf16 or fp32 features -> fp32 (one 8- or 16-byte load)
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+
+__device__ __forceinline__ void load4(const float* p, float* f) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+}
+
+// One stage of the transpose-sum: lanes that differ in bit OFF swap the
+// halves of v[0, 2 OFF) they do not keep; v[0, OFF) then holds sums over
+// pairs of lanes.
+template <int OFF>
+__device__ __forceinline__ void transpose_stage(float* v, int lane) {
+  const bool upper = lane & OFF;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const float send = upper ? v[i] : v[i + OFF];
+    const float keep = upper ? v[i + OFF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+}
+
+// v[i] holds this lane's part of the sum of item i (i < 32); afterwards
+// v[0] holds the warp's total of item `lane` (31 shuffles for 32 sums).
+__device__ __forceinline__ void warp_transpose_sum(float* v, int lane) {
+  transpose_stage<16>(v, lane);
+  transpose_stage<8>(v, lane);
+  transpose_stage<4>(v, lane);
+  transpose_stage<2>(v, lane);
+  transpose_stage<1>(v, lane);
+}
+
+constexpr int kLP = 2 * kNP;            // (level, pixel) pairs: 18
+constexpr int kSlab = kD * kRH + 4;     // floats per window slab (+4: banks)
+constexpr unsigned kAll = 0xffffffffu;
+
+// One edge's geometry, one (level, pixel) per lane (lane l * 9 + p, lanes
+// 0-17); the masks are the warp's. An invalid edge has no window and a
+// zero blend weight, so its blend is exactly zero.
+struct EdgeGeo {
+  int ys, xs;            // window start
+  int ry, rx;            // window start in the region
+  float fx, fy;          // blend weights (0 for an invalid edge)
+  unsigned fit_mask;     // bit l * 9 + p: the window fits the region
+  unsigned spill_mask;   // bit l * 9 + p: it does not but overlaps the map
+};
+
+// (x, y) of this lane's pixel
+__device__ __forceinline__ float2 lane_coords(const float* coords, int e,
+                                             int p, bool geo) {
+  return geo ? __ldg(reinterpret_cast<const float2*>(coords) +
+                     static_cast<size_t>(e) * kNP + p)
+             : make_float2(0.f, 0.f);
+}
+
+__device__ __forceinline__ EdgeGeo edge_geo(float2 c, bool ok, bool geo,
+                                            int l, int H, int W) {
+  EdgeGeo g;
+  const float s = l ? 4.0f : 1.0f;
+  const float x = c.x / s;
+  const float y = c.y / s;
+  g.fx = ok ? x - floorf(x) : 0.f;
+  g.fy = ok ? y - floorf(y) : 0.f;
+  g.ys = geo ? static_cast<int>(floorf(clamp_coord(y))) - kR : INT_MAX;
+  g.xs = geo ? static_cast<int>(floorf(clamp_coord(x))) - kR : INT_MAX;
+  const int oy0 = __reduce_min_sync(kAll, geo && !l ? g.ys : INT_MAX);
+  const int ox0 = __reduce_min_sync(kAll, geo && !l ? g.xs : INT_MAX);
+  const int oy1 = __reduce_min_sync(kAll, geo && l ? g.ys : INT_MAX);
+  const int ox1 = __reduce_min_sync(kAll, geo && l ? g.xs : INT_MAX);
+  g.ry = geo ? g.ys - (l ? oy1 : oy0) : 0;
+  g.rx = geo ? g.xs - (l ? ox1 : ox0) : 0;
+  const bool fit = ok && geo && g.ry <= kRH - kD && g.rx <= kRH - kD;
+  const bool over = ok && geo && g.ys > -kD && g.ys < H && g.xs > -kD &&
+                    g.xs < W;
+  g.fit_mask = __ballot_sync(kAll, fit);
+  g.spill_mask = __ballot_sync(kAll, over && !fit);
+  return g;
+}
+
+// A fitting window's 8 region rows are 512 contiguous bytes of the
+// surfaces: one 16-byte load per lane (row lane / 4, columns
+// 4 * (lane % 4) + 0..3). No load is behind a branch: where those columns
+// hold no window column the lane reads the nearest chunk that does (the
+// same sectors, and its slot is never read), and a window that does not
+// fit reads the slab's first chunk and is zeroed.
+__device__ __forceinline__ void load_windows(const float4* surf4, int e,
+                                             const EdgeGeo& g, int lane,
+                                             float4 (&buf)[kLP]) {
+  constexpr int kPos4 = kRH * kRH / 4;   // float4s per (level, pixel)
+  const float4* se = surf4 + static_cast<size_t>(e) * kLP * kPos4;
+  const int row4 = lane & ~3;            // the lane's window row, in float4s
+  const int c = lane & 3;
+#pragma unroll
+  for (int sl = 0; sl < kLP; ++sl) {
+    const int sry = __shfl_sync(kAll, g.ry, sl);
+    const int srx = __shfl_sync(kAll, g.rx, sl);
+    const bool fit = g.fit_mask >> sl & 1u;
+    const int cq = min(max(c, srx >> 2), (srx + kD - 1) >> 2);
+    const float4 v =
+        __ldg(se + sl * kPos4 + (fit ? sry * (kRH / 4) + row4 + cq : 0));
+    buf[sl] = fit ? v : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// The spilled pixels' windows, straight from the map into their slabs
+// (columns 0-7): lane owns channels 4 * lane + 0..3, so each of the 64 map
+// positions is one coalesced row read, and a transpose-sum per 32
+// positions forms the products; the pixel's patch features are read only
+// here. A position off the map reads the clamped position and its product
+// is zeroed, so no load waits behind a branch.
 template <typename T>
-__global__ void __launch_bounds__(kWinThreads)
+__device__ __forceinline__ void spill_windows(
+    unsigned spill_mask, int ys, int xs, const T* gk, const T* fmap1,
+    const T* fmap2, int j, int H1, int W1, int H2, int W2, int lane,
+    float* win) {
+  unsigned m = spill_mask;
+  while (m) {
+    const int sl = __ffs(m) - 1;
+    m &= m - 1;
+    const int sp = sl % kNP;
+    const bool l2 = sl >= kNP;
+    const T* fmap = l2 ? fmap2 : fmap1;
+    const int H = l2 ? H2 : H1;
+    const int W = l2 ? W2 : W1;
+    const int y0 = __shfl_sync(kAll, ys, sl);
+    const int x0 = __shfl_sync(kAll, xs, sl);
+    float gv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) gv[i] = to_float(gk[(4 * lane + i) * kNP + sp]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float v[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int y = y0 + (32 * half + i) / kD;
+        const int x = x0 + i % kD;
+        const bool in = y >= 0 && y < H && x >= 0 && x < W;
+        float f[4];
+        load4(fmap + ((static_cast<size_t>(j) * H + min(max(y, 0), H - 1)) *
+                          W + min(max(x, 0), W - 1)) * kC + 4 * lane, f);
+        v[i] = in ? gv[0] * f[0] + gv[1] * f[1] + gv[2] * f[2] + gv[3] * f[3]
+                  : 0.f;
+      }
+      warp_transpose_sum(v, lane);
+      const int pos = 32 * half + lane;
+      win[sl * kSlab + (pos / kD) * kRH + pos % kD] = v[0];
+    }
+  }
+}
+
+// The split pair's second kernel: windows from x16 surfaces
+// [E, 2, 9, 16, 16], spill windows from the map, the blend; one warp per
+// edge.
+template <typename T>
+__global__ void __launch_bounds__(32)
 extract_kernel(const float* __restrict__ surf, const T* __restrict__ gmap,
                const T* __restrict__ fmap1, const T* __restrict__ fmap2,
                const float* __restrict__ coords, const int* __restrict__ kk,
@@ -250,52 +368,60 @@ extract_kernel(const float* __restrict__ surf, const T* __restrict__ gmap,
                const unsigned char* __restrict__ valid,
                float* __restrict__ out, unsigned char* __restrict__ spill_out,
                int H1, int W1, int H2, int W2) {
-  constexpr int RW = 16;
-  constexpr int kPos = kRH * RW;
-  __shared__ float g_s[kNP * kC];
-  __shared__ Geo geo;
-  __shared__ float w_s[kNP * kD * kD];
-  __shared__ float o_s[kOut];
+  // window slab of (level, pixel) s: 8 rows of 16 floats (the region rows
+  // of a fitting window, or the spill window in columns 0-7)
+  __shared__ float4 s_win[kLP * kSlab / 4];
+  // (fx, fy, column of the window in its slab, -)
+  __shared__ float4 s_par[kLP];
 
+  const int lane = threadIdx.x;
   const int e = blockIdx.x;
-  const int t = threadIdx.x;
-  if (!valid[e]) {
-    for (int i = t; i < kOut; i += kWinThreads)
-      out[static_cast<size_t>(e) * kOut + i] = 0.0f;
-    if (t == 0) spill_out[e] = 0;
-    return;
-  }
-  const int j = jj[e];
-  load_patch(gmap, static_cast<size_t>(kk[e]), g_s, t, kWinThreads);
-  const float* cp = coords + static_cast<size_t>(e) * kNP * 2;
-  const int p = t / (kD * kD);
-  const int a = (t / kD) % kD;
-  const int b = t % kD;
-  int spilled = 0;
+  const bool geo = lane < kLP;
+  const int l = lane >= kNP;
+  const int p = lane - l * kNP;
+  float* win = reinterpret_cast<float*>(s_win);
 
-  for (int l = 0; l < 2; ++l) {
-    const T* fmap = l ? fmap2 : fmap1;
-    const int H = l ? H2 : H1;
-    const int W = l ? W2 : W1;
-    __syncthreads();
-    if (t == 0) edge_geometry<RW>(cp, l ? 4.0f : 1.0f, H, W, geo);
-    __syncthreads();
-    float w = 0.0f;
-    if (geo.fit[p])
-      w = surf[((static_cast<size_t>(e) * 2 + l) * kNP + p) * kPos +
-               (geo.ys[p] + a - geo.oy) * RW + geo.xs[p] + b - geo.ox];
-    else if (geo.spill[p])
-      w = window_dot(fmap, j, H, W, geo.ys[p] + a, geo.xs[p] + b,
-                     g_s + p * kC);
-    w_s[t] = w;
-    __syncthreads();
-    blend(w_s, geo, l, o_s, t, kWinThreads);
-    spilled |= geo.any_spill;
+  // the valid flag and the coordinates load together
+  const EdgeGeo g = edge_geo(lane_coords(coords, e, p, geo), valid[e], geo,
+                             l, l ? H2 : H1, l ? W2 : W1);
+  float4 buf[kLP];
+  load_windows(reinterpret_cast<const float4*>(surf), e, g, lane, buf);
+#pragma unroll
+  for (int sl = 0; sl < kLP; ++sl) s_win[sl * kSlab / 4 + lane] = buf[sl];
+  if (geo)
+    s_par[lane] = make_float4(
+        g.fx, g.fy, __int_as_float(g.fit_mask >> lane & 1u ? g.rx : 0), 0.f);
+  if (g.spill_mask) {
+    __syncwarp();  // the zeroed slabs are written before the spill windows
+    spill_windows(g.spill_mask, g.ys, g.xs,
+                  gmap + static_cast<size_t>(kk[e]) * kNP * kC, fmap1, fmap2,
+                  jj[e], H1, W1, H2, W2, lane, win);
   }
-  __syncthreads();
-  float* orow = out + static_cast<size_t>(e) * kOut;
-  for (int i = t; i < kOut; i += kWinThreads) orow[i] = o_s[i];
-  if (t == 0) spill_out[e] = static_cast<unsigned char>(spilled);
+  __syncwarp();
+
+  // the blend, both levels of one output pair per lane and step:
+  // q = (dx * 7 + dy) * 9 + p, out[2 q + level] (coalesced 8-byte stores)
+  float2* orow = reinterpret_cast<float2*>(out + static_cast<size_t>(e) * kOut);
+#pragma unroll
+  for (int k = 0; k < (kOut / 2 + 31) / 32; ++k) {
+    const int q = 32 * k + lane;
+    if (q >= kOut / 2) break;
+    const int qp = q % kNP;
+    const int dy = (q / kNP) % kDO;
+    const int dx = q / (kNP * kDO);
+    float o[2];
+#pragma unroll
+    for (int ql = 0; ql < 2; ++ql) {
+      const float4 par = s_par[ql * kNP + qp];
+      const float* c = win + (ql * kNP + qp) * kSlab + dy * kRH +
+                       __float_as_int(par.z) + dx;
+      o[ql] = (1.0f - par.x) * (1.0f - par.y) * c[0] +
+              par.x * (1.0f - par.y) * c[1] + (1.0f - par.x) * par.y * c[kRH] +
+              par.x * par.y * c[kRH + 1];
+    }
+    orow[q] = make_float2(o[0], o[1]);
+  }
+  if (lane == 0) spill_out[e] = g.spill_mask != 0;
 }
 
 template <int RW, typename T>
@@ -350,8 +476,8 @@ extern "C" int wv3d_corr_region_surfaces_x16(
 }
 
 // surf as written by wv3d_corr_region_surfaces_x16; out [E, 882] fp32 and
-// spill [E] uint8 (1 where a valid edge took the spill path at either
-// level).
+// spill [E] bytes, 1 where a valid edge took the spill path at either
+// level, else 0 (the storage of a bool tensor).
 extern "C" int wv3d_corr_region_extract_x16(
     const void* surf, const void* gmap, const void* fmap1, const void* fmap2,
     const void* coords, const void* kk, const void* jj, const void* valid,
@@ -367,13 +493,13 @@ extern "C" int wv3d_corr_region_extract_x16(
   float* o = static_cast<float*>(out);
   unsigned char* sp = static_cast<unsigned char*>(spill);
   if (feat_bf16) {
-    extract_kernel<__nv_bfloat16><<<E, kWinThreads, 0, st>>>(
+    extract_kernel<__nv_bfloat16><<<E, 32, 0, st>>>(
         s, static_cast<const __nv_bfloat16*>(gmap),
         static_cast<const __nv_bfloat16*>(fmap1),
         static_cast<const __nv_bfloat16*>(fmap2), c, k, j, v, o, sp, H1, W1,
         H2, W2);
   } else {
-    extract_kernel<float><<<E, kWinThreads, 0, st>>>(
+    extract_kernel<float><<<E, 32, 0, st>>>(
         s, static_cast<const float*>(gmap), static_cast<const float*>(fmap1),
         static_cast<const float*>(fmap2), c, k, j, v, o, sp, H1, W1, H2, W2);
   }

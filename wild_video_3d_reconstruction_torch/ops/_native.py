@@ -43,6 +43,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "wv3d_corr_pyramid": [_P] * 8 + [_I] * 6 + [_P],
     "wv3d_runsum": [_P] * 5 + [_I] * 2 + [_P],
+    "wv3d_runsum_tile": [],
     "wv3d_corr_region_fused_x32": [_P] * 9 + [_I] * 6 + [_P],
     "wv3d_corr_region_fused_x16": [_P] * 9 + [_I] * 6 + [_P],
     "wv3d_corr_region_surfaces_x16": [_P] * 8 + [_I] * 6 + [_P],

@@ -230,6 +230,18 @@ def region_surfaces(gmap, pyramid, coords, kk, jj, valid):
     return surf
 
 
+def check_surfaces(name, surf, E):
+    """Raise unless surf is the extract kernel's input: x16 surfaces
+    [E, 2, 9, 16, 16] in fp32."""
+    want = (E, len(LEVELS), NP, RH, REGION_W["x16"])
+    if tuple(surf.shape) != want:
+        raise ValueError(f"{name}: surfaces of shape {tuple(surf.shape)}, "
+                         f"expected {want}")
+    if surf.dtype != torch.float32:
+        raise TypeError(f"{name}: surfaces of dtype {surf.dtype}, expected "
+                        "torch.float32")
+
+
 def region_extract(surf, gmap, pyramid, coords, kk, jj, valid):
     """([E, 882] fp32, spilled [E] bool) from x16 surfaces: the plain
     version for CPU tensors, the extract kernel for CUDA ones."""
@@ -239,21 +251,19 @@ def region_extract(surf, gmap, pyramid, coords, kk, jj, valid):
     name = "wv3d_corr_region_extract_x16"
     a = KernelArgs(name, gmap, pyramid, coords, kk, jj, valid)
     E = a.coords.shape[0]
-    if tuple(surf.shape) != (E, len(LEVELS), NP, RH, REGION_W["x16"]):
-        raise ValueError(f"{name}: surfaces of shape {tuple(surf.shape)}, "
-                         f"expected {(E, len(LEVELS), NP, RH, 16)}")
-    _native.require_cuda(name, surf, a.coords,
-                         dtypes=((torch.float32,), None))
+    check_surfaces(name, surf, E)
+    _native.require_cuda(name, surf, a.coords)
     out = torch.empty((E, 882), dtype=torch.float32, device=coords.device)
-    spill = torch.empty(E, dtype=torch.uint8, device=coords.device)
+    # the kernel writes the flags as bytes 0 and 1, a bool tensor's storage
+    spill = torch.empty(E, dtype=torch.bool, device=coords.device)
     if E == 0:
-        return out, spill.bool()
+        return out, spill
     err = _native.lib().wv3d_corr_region_extract_x16(
         surf.data_ptr(), *a.pointers(), out.data_ptr(), spill.data_ptr(),
         *a.sizes())
     _native.check_launch(name, err)
     _native.LAUNCHES["corr_region_extract"] += 1
-    return out, spill.bool()
+    return out, spill
 
 
 def region_corr_pyramid(gmap, pyramid, coords, kk, jj, valid, variant,

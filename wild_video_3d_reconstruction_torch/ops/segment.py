@@ -93,12 +93,40 @@ def run_segment_sum_sorted_plain(fes, seg_sorted):
     return sums[run]
 
 
+def run_first_rows(seg_sorted):
+    """[E] index of the first row of each row's run of equal contiguous
+    ids: a run-sum holds one total on every row of a run when out equals
+    out[run_first_rows(seg)] bitwise."""
+    E = seg_sorted.shape[0]
+    start = torch.ones(E, dtype=torch.bool, device=seg_sorted.device)
+    start[1:] = seg_sorted[1:] != seg_sorted[:-1]
+    first = torch.arange(E, device=seg_sorted.device)
+    return torch.cummax(torch.where(start, first, 0), 0).values
+
+
+def runsum_scratch_rows(fes, seg_sorted, tile):
+    """Rows of each of the run-sum kernel's two [rows, D] partial-sum
+    scratch arrays, one per tile of `tile` rows (the kernel's
+    `wv3d_runsum_tile()`); raises for inputs the kernel does not take: fes
+    not [E, D] with D a multiple of 4 (rows of 16-byte loads), seg_sorted
+    not [E]."""
+    if fes.dim() != 2 or fes.shape[1] % 4:
+        raise ValueError(f"run_segment_sum_sorted: fes must be [E, D] with "
+                         f"D a multiple of 4, got {tuple(fes.shape)}")
+    if tuple(seg_sorted.shape) != (fes.shape[0],):
+        raise ValueError(f"run_segment_sum_sorted: seg_sorted of shape "
+                         f"{tuple(seg_sorted.shape)} for {fes.shape[0]} rows")
+    return -(-fes.shape[0] // tile)
+
+
 def run_segment_sum_sorted(fes, seg_sorted):
     """fes [E, D] fp32 in segment order, seg_sorted [E] -> [E, D] fp32 run
     totals: the plain version for CPU tensors, the Hopper kernel
     (`csrc/runsum.cu`) for CUDA tensors."""
     if not fes.is_cuda:
         return run_segment_sum_sorted_plain(fes, seg_sorted)
+    lib = _native.lib()
+    n_tiles = runsum_scratch_rows(fes, seg_sorted, lib.wv3d_runsum_tile())
     E, D = fes.shape
     fes = fes.float().contiguous()
     seg = seg_sorted.to(torch.int32).contiguous()
@@ -106,10 +134,9 @@ def run_segment_sum_sorted(fes, seg_sorted):
     out = torch.empty_like(fes)
     if E == 0:
         return out
-    n_tiles = -(-E // 64)
     head = torch.empty((n_tiles, D), dtype=torch.float32, device=fes.device)
     tail = torch.empty_like(head)
-    err = _native.lib().wv3d_runsum(
+    err = lib.wv3d_runsum(
         fes.data_ptr(), seg.data_ptr(), out.data_ptr(), head.data_ptr(),
         tail.data_ptr(), E, D, _native.stream_ptr(fes.device))
     _native.check_launch("wv3d_runsum", err)

@@ -15,8 +15,10 @@ frames two ways:
   synchronisations: device time by kernel, and the device's busy share of
   the traced wall time.
 
-Prints one JSON object per config and, with --out, writes it there with
-the top 25 kernels. --fused runs each config with `PALLAS_FUSED: true`
+Prints one JSON object per config (with the device time of every kernel
+of the port's own `csrc/`, and per source file the device time its kernels
+cover, overlapping kernels counted once) and, with --out, writes it there
+with the top 25 kernels. --fused runs each config with `PALLAS_FUSED: true`
 (the fused entry of the same correlation body, with the region spill
 flags). Needs CUDA; fails without it.
 """
@@ -27,9 +29,11 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -39,6 +43,7 @@ from .slam import steps
 from .utils.config import load_config
 
 HT, WD = 384, 512
+CSRC = Path(__file__).resolve().parent / "csrc"
 STAGES = ("insert_frame", "append_edges", "update_op", "corr_lookup",
           "update_forward", "_bundle_adjust_impl", "keyframe_and_log")
 
@@ -48,6 +53,34 @@ def synthetic_frames(n, seed=0):
     big = rng.uniform(0, 255, size=(HT * 2, WD * 2, 3)).astype(np.uint8)
     return [big[4 * t % HT:4 * t % HT + HT, 6 * t % WD:6 * t % WD + WD].copy()
             for t in range(n)]
+
+
+def port_kernel_sources():
+    """{kernel function name: source file} of the port's own kernels, read
+    from the `__global__` declarations of csrc/*.cu."""
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
+                      r"(?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+    return {name: src.name for src in sorted(CSRC.glob("*.cu"))
+            for name in decl.findall(src.read_text())}
+
+
+def port_kernel(key, sources):
+    """The port kernel a profiler key names (its kernels live in an
+    anonymous namespace at the top level), or None."""
+    m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]", key)
+    return m.group(1) if m and m.group(1) in sources else None
+
+
+def busy_ms(intervals):
+    """Length of the union of (start, end) intervals, in ms: kernels of one
+    source that overlap on the device (a programmatic dependent launch)
+    count once."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
 
 
 @contextlib.contextmanager
@@ -127,6 +160,13 @@ def profile(config, n_frames, out_dir, fused=False):
         kernels.append((ev.key, dev_us / 1e3 / n2, ev.count / n2))
     kernels.sort(key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
+    sources = port_kernel_sources()
+    spans = defaultdict(list)
+    for ev in prof.events():
+        name = port_kernel(ev.name, sources)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and name:
+            spans[sources[name]].append((ev.time_range.start,
+                                         ev.time_range.end))
     frame_ms = 1e3 * wall2 / n2
     result = dict(
         config=config, fused=fused, variant=cfg.PALLAS_VARIANT, HxW=[HT, WD],
@@ -139,7 +179,12 @@ def profile(config, n_frames, out_dir, fused=False):
         device_busy_share=device_ms / frame_ms if frame_ms else None,
         kernels_per_frame=sum(k[2] for k in kernels),
         top_kernels=[dict(name=k[0][:120], ms_per_frame=k[1],
-                          launches_per_frame=k[2]) for k in kernels[:25]])
+                          launches_per_frame=k[2]) for k in kernels[:25]],
+        port_kernels=[dict(name=port_kernel(k[0], sources), ms_per_frame=k[1],
+                           launches_per_frame=k[2]) for k in kernels
+                      if port_kernel(k[0], sources)],
+        port_busy_ms_per_frame={src: busy_ms(iv) / n2
+                                for src, iv in sorted(spans.items())})
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         name = os.path.splitext(os.path.basename(config))[0] + \

@@ -116,6 +116,21 @@ def back_to_back_ms(fn, reps=20, warmup=3):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps=20):
+    """Device time per call: `reps` calls captured in one CUDA graph (the
+    wrapper's Python runs only while capturing), the graph replayed
+    between two CUDA events; the median of 5 replays, over `reps`."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return time_ms(g.replay, reps=5, warmup=1) / reps
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -199,6 +214,34 @@ def window_einsum_ms(gmap, pyr, coords, kk, jj):
         lib_ms += time_ms(lambda: torch.einsum("epwc,epc->epw", win, g),
                           reps=5, warmup=1)
         del win, flat
+    torch.cuda.empty_cache()
+    return lib_ms
+
+
+def region_bmm_ms(gmap, pyr, coords, kk, jj):
+    """Yardstick for the surfaces producer: one torch.bmm per level of the
+    patch features [E, 9, 128] with the 16x16 regions at the x16 origin
+    [E, 128, 256], gathered beforehand in the feature dtype (zero off the
+    map)."""
+    E = coords.shape[0]
+    g = gmap[kk.long()].reshape(E, 128, 9).transpose(1, 2).contiguous()
+    lib_ms = 0.0
+    for fmap, s in zip(pyr, LEVELS):
+        F_, H, W, C = fmap.shape
+        _, _, oy, ox, _, _ = tregion.geometry(coords / s, "x16", H, W)
+        ys = oy[:, None] + torch.arange(tregion.RH, device=DEV)
+        xs = ox[:, None] + torch.arange(tregion.REGION_W["x16"], device=DEV)
+        inb = ((ys >= 0) & (ys < H))[:, :, None] & \
+            ((xs >= 0) & (xs < W))[:, None, :]
+        flat = (jj.long() * H * W)[:, None, None] + \
+            ys.clamp(0, H - 1)[:, :, None] * W + xs.clamp(0, W - 1)[:, None, :]
+        flat = torch.where(inb, flat, F_ * H * W)      # the zero row
+        table = torch.cat([fmap.reshape(-1, C), fmap.new_zeros(1, C)])
+        reg = table[flat.reshape(-1)].reshape(E, -1, C).transpose(1, 2) \
+            .contiguous()
+        del flat, table
+        lib_ms += time_ms(lambda: torch.bmm(g, reg), reps=5, warmup=1)
+        del reg
     torch.cuda.empty_cache()
     return lib_ms
 
@@ -511,30 +554,54 @@ def kernel_region_split(gen):
         same_spill = bool(torch.equal(spill, ref_spill))
         finite = bool(torch.isfinite(out).all() and torch.isfinite(surf).all())
         ms_s = time_ms(lambda: tregion.region_surfaces(*args))
+        b2b_s = back_to_back_ms(lambda: tregion.region_surfaces(*args))
         ms_x = time_ms(lambda: tregion.region_extract(surf, *args))
         b2b_x = back_to_back_ms(lambda: tregion.region_extract(surf, *args))
+        # the same edges grouped by target frame, the order in which every
+        # map the producer reads stays in L2
+        order = jj.argsort(stable=True)
+        grouped = (gmap, pyr, coords[order].contiguous(),
+                   kk[order].contiguous(), jj[order].contiguous(),
+                   valid[order].contiguous())
+        b2b_s_grouped = back_to_back_ms(
+            lambda: tregion.region_surfaces(*grouped))
+        del grouped
+        # the card's time for writing as many bytes as the surfaces alone
+        store_ms = None
+        if spread == 1.0:
+            scratch = torch.empty_like(surf)
+            store_ms = back_to_back_ms(scratch.zero_)
+            del scratch
         torch.cuda.empty_cache()
         plain_s = time_ms(lambda: tregion.region_surfaces_plain(*args),
                           reps=3, warmup=1)
         plain_x = time_ms(lambda: tregion.region_extract_plain(surf, *args),
                           reps=3, warmup=1)
+        lib_s = region_bmm_ms(gmap, pyr, coords, kk, jj) \
+            if spread == 1.0 else None
         b_s, flops_s = surfaces_work(*args, surf)
         b_x, flops_x = extract_work(*args, surf, out, spill)
         r_s = dict(name="corr_region_surfaces", route="cuda",
-                   source=REGION_SOURCE, replaces=f"{PALLAS_CORR}:123",
-                   max_abs_err=err_s, ms=ms_s, plain_ms=plain_s,
-                   **bound(b_s, flops_s, BF16_FLOPS), library_ms=None)
+                   source=BOX_SOURCE, replaces=f"{PALLAS_CORR}:123",
+                   max_abs_err=err_s, ms=ms_s, ms_back_to_back=b2b_s,
+                   plain_ms=plain_s, **bound(b_s, flops_s, BF16_FLOPS),
+                   library_ms=lib_s)
         r_x = dict(name="corr_region_extract", route="cuda",
                    source=REGION_SOURCE, replaces=f"{PALLAS_CORR}:230",
                    max_abs_err=err_x, ms=ms_x, ms_back_to_back=b2b_x,
                    plain_ms=plain_x,
                    **bound(b_x, flops_x, FP32_FLOPS), library_ms=None)
-        for r, b, f in ((r_s, b_s, flops_s), (r_x, b_x, flops_x)):
+        for r, b, f, extra in (
+                (r_s, b_s, flops_s, dict(
+                    ms_back_to_back_edges_grouped_by_jj=b2b_s_grouped,
+                    ms_back_to_back_zero_fill_surfaces=store_ms,
+                    library="torch.bmm over pre-gathered regions")),
+                (r_x, b_x, flops_x, {})):
             emit("kernels", shapes="default", E=E_KERNEL,
                  pixel_spacing_px=spread, spill_edges=n_spill,
                  spill_flags_match_plain=same_spill, tol_abs=TOL_CORR_ABS,
                  pair_vs_fused_plain_max_abs_err=err_full, finite=finite,
-                 bytes=b, flops=f, surface_bytes=nbytes(surf), **r)
+                 bytes=b, flops=f, surface_bytes=nbytes(surf), **extra, **r)
         if not finite or not max(err_s, err_x, err_full) <= TOL_CORR_ABS \
                 or not same_spill:
             fail(f"split region pair disagrees with its plain version: "
@@ -571,6 +638,8 @@ def kernel_chol(gen):
         nan_ok = bool(torch.isnan(tchol.chol_solve_small(
             -torch.eye(D, device=DEV), y)).all())
         ms = time_ms(lambda: tchol.chol_solve_small(S, y))
+        ms_b2b = back_to_back_ms(lambda: tchol.chol_solve_small(S, y))
+        ms_dev = graph_ms(lambda: tchol.chol_solve_small(S, y))
         plain_ms = time_ms(lambda: tchol.chol_solve_small_plain(S, y))
         lib_ms = time_ms(lambda: torch.linalg.solve(S, y))
         flops = D ** 3 / 3 + 2 * D ** 2
@@ -578,10 +647,12 @@ def kernel_chol(gen):
                  source="wild_video_3d_reconstruction_torch/csrc/chol.cu",
                  replaces="wild_video_3d_reconstruction_tpu/ops/"
                           "pallas_chol.py:37",
-                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 max_abs_err=err, ms=ms, ms_back_to_back=ms_b2b,
+                 plain_ms=plain_ms,
                  **bound(nbytes(S, y, x), flops, FP32_FLOPS),
                  library_ms=lib_ms)
         emit("kernels", D=D, rtol=TOL_CHOL_RTOL, atol=TOL_CHOL_ATOL,
+             ms_cuda_graph=ms_dev,
              within_tol=close, nan_on_minus_identity=nan_ok,
              plain="cholesky_ex + cholesky_solve",
              library="torch.linalg.solve", **r)

@@ -25,7 +25,12 @@ def spd(d, seed):
     return S, rng.normal(size=(d,)).astype(np.float32)
 
 
-@pytest.mark.parametrize("d", [8, 72, 128, 256])
+# panel edges of the kernel's 16-column blocking (csrc/chol.cu): ragged
+# last panels, one-column and exactly-one-panel systems
+DIMS = [1, 2, 7, 8, 9, 15, 16, 17, 33, 54, 72, 100, 128, 255, 256]
+
+
+@pytest.mark.parametrize("d", DIMS)
 def test_matches_jax_kernel_and_scipy(d):
     S, y = spd(d, d)
     before = dict(_native.LAUNCHES)
@@ -39,18 +44,42 @@ def test_matches_jax_kernel_and_scipy(d):
     np.testing.assert_allclose(x.numpy(), jx, rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("S", [-np.eye(16, dtype=np.float32),
-                               np.zeros((16, 16), np.float32),
-                               np.diag(np.r_[np.ones(15), -1.0]).astype(
-                                   np.float32)],
-                         ids=["minus-identity", "zero", "last-pivot"])
-def test_not_spd_gives_nan(S):
-    """Not SPD gives NaN, as the JAX kernel does (on -I: all of x)."""
-    y = np.ones(16, np.float32)
+def not_spd(kind):
+    """A symmetric S that is not SPD, by where its first non-positive
+    pivot falls: -I, 0, a negative last pivot of the first panel, a zero
+    pivot at the last index only (row and column 71 of an SPD matrix set
+    to 0), a negative pivot at the first and at the last column of the
+    second panel (that diagonal entry of an SPD matrix negated)."""
+    if kind == "minus-identity":
+        return -np.eye(16, dtype=np.float32)
+    if kind == "zero":
+        return np.zeros((16, 16), np.float32)
+    if kind == "last-pivot":
+        return np.diag(np.r_[np.ones(15), -1.0]).astype(np.float32)
+    if kind == "zero-last-pivot":
+        S, _ = spd(72, 1)
+        S[-1, :] = S[:, -1] = 0.0
+        return S
+    S, _ = spd(40, 2)
+    k = {"negative-panel-first": 16, "negative-panel-last": 31}[kind]
+    S[k, k] = -S[k, k]
+    return S
+
+
+NOT_SPD = ["minus-identity", "zero", "last-pivot", "zero-last-pivot",
+           "negative-panel-first", "negative-panel-last"]
+
+
+@pytest.mark.parametrize("kind", NOT_SPD)
+def test_not_spd_gives_nan(kind):
+    """Not SPD gives NaN in every entry of x, in the port as in the JAX
+    kernel."""
+    S = not_spd(kind)
+    y = np.ones(S.shape[0], np.float32)
     x = tchol.chol_solve_small(torch.from_numpy(S), torch.from_numpy(y))
     assert torch.isnan(x).all()
     jx = np.asarray(jchol(jnp.asarray(S), jnp.asarray(y), interpret=True))
-    assert not np.isfinite(jx).all()
+    assert np.isnan(jx).all()
 
 
 def test_rejects_what_it_cannot_take():

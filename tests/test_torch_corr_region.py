@@ -269,3 +269,80 @@ def test_extract_surfaces_are_checked():
     with pytest.raises(TypeError):               # bf16 surfaces
         tregion.check_surfaces("extract", torch.zeros(
             5, 2, 9, 16, 16, dtype=torch.bfloat16), 5)
+
+
+def jax_surfaces4(gmap, fmap, coords, kk, jj, eb=8):
+    """The JAX x16 surfaces kernel `_surfaces4` (#2 on the split route) on
+    one level, called as `patch_corr_pyramid_pallas` calls it (padded map,
+    frame buckets, the clamped origin): (surfaces [E, 9, 256] fp32 from
+    its bf16 output, origin (oy, ox) [E, 2] in map coordinates)."""
+    P, RSH, RSW, RSW4 = (pallas_corr.PAD, pallas_corr.RSH, pallas_corr.RSW,
+                         pallas_corr.RSW4)
+    E = coords.shape[0]
+    S, C = gmap.shape[:2]
+    F, H, W, _ = fmap.shape
+    pad_h = max(P, RSH - (H + P))
+    pad_w = max(P, RSW - (W + P))
+    pad_w += -(W + P + pad_w) % 16
+    fmap_pad = jnp.pad(jnp.asarray(fmap, jnp.bfloat16),
+                       ((0, 0), (P, pad_h), (P, pad_w), (0, 0)))
+    Hp, Wp = H + P + pad_h, W + P + pad_w
+    ys = np.floor(coords[..., 1]).astype(np.int32).reshape(E, 9) - 3 + P
+    xs = np.floor(coords[..., 0]).astype(np.int32).reshape(E, 9) - 3 + P
+    oy = np.clip(ys.min(1), 0, Hp - RSH)
+    ox = np.clip(xs.min(1), 0, Wp - RSW4)
+    ox16 = np.clip(ox // 16 * 16, 0, (Wp - RSW) // 16 * 16)
+    origin = jnp.asarray(np.concatenate(
+        [np.stack([oy, ox16, ox - ox16], -1), np.zeros((1, 3))]), jnp.int32)
+    n_slots = -(-E // eb) * eb + (F + 1) * eb
+    slot_edge, slot_of_edge, block_meta = pallas_corr._bucket_by_frame(
+        jnp.asarray(jj, jnp.int32), F, n_slots, eb=eb)
+    g = np.moveaxis(gmap, 1, -1).reshape(S, 9, C)
+    g = jnp.asarray(np.pad(g, ((0, 1), (0, 7), (0, 0))), jnp.bfloat16)
+    kk_pad = jnp.concatenate([jnp.asarray(kk, jnp.int32),
+                              jnp.full((1,), S, jnp.int32)])
+    surf = pallas_corr._surfaces4(fmap_pad, block_meta, origin[slot_edge],
+                                  g[kk_pad[slot_edge]], n_slots)
+    surf = np.asarray(surf.astype(jnp.float32))[np.asarray(slot_of_edge)]
+    return surf, np.stack([oy, ox], -1) - P
+
+
+@pytest.mark.parametrize("side", ["top", "bottom", "left", "right"])
+def test_surfaces_match_jax_surfaces4(interpret, side):
+    """`region_surfaces` on the CPU against the JAX surfaces kernel in
+    interpret mode, on regions partly off the map at one side (5-8 of
+    their 16 rows or columns at level 1). bf16-valued features: the JAX
+    kernel's one rounding is its bf16 output, within TOL_PALLAS of the
+    largest |surface|. JAX clamps the origin to its padded map: the
+    (edge, level) pairs it moved are not compared (at level 1 none is; at
+    the 8x12 level 2, all of the bottom case's)."""
+    gmap, (f1, f2), coords, kk, jj, _ = make_case(10, E=8)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    gmap, f1, f2 = bf(gmap), bf(f1), bf(f2)
+    H, W = f1.shape[1:3]
+    rng = np.random.default_rng(11)
+    lo = {"top": -2.0, "left": -2.0, "bottom": H - 6.0, "right": W - 6.0}
+    near = rng.uniform(lo[side], lo[side] + 2.0, size=8)
+    inner = rng.uniform(8.0, min(H, W) - 8.0, size=8)
+    cx, cy = (near, inner) if side in ("left", "right") else (inner, near)
+    off = np.arange(3) - 1.0
+    coords = np.stack(np.broadcast_arrays(
+        cx[:, None, None] + off[None, None, :],
+        cy[:, None, None] + off[None, :, None]), -1).astype(np.float32)
+    valid = np.ones(8, bool)
+    surf = tregion.region_surfaces(*to_t((gmap, (f1, f2), coords, kk, jj,
+                                          valid))).numpy()
+    for li, (fmap, s) in enumerate(((f1, 1), (f2, 4))):
+        ref, origin = jax_surfaces4(gmap, fmap, coords / s, kk, jj)
+        ys, xs, oy, ox, _, _ = tregion.geometry(
+            torch.from_numpy(coords / s), "x16", *fmap.shape[1:3])
+        same = (origin[:, 0] == oy.numpy()) & (origin[:, 1] == ox.numpy())
+        if li == 0:
+            assert same.all()
+            edge = {"top": oy < 0, "left": ox < 0, "bottom": oy + 16 > H,
+                    "right": ox + 16 > W}[side]
+            assert bool(edge.all())
+        if same.any():
+            out = surf[same, li].reshape(-1, 9, 256)
+            assert np.abs(out - ref[same]).max() <= \
+                TOL_PALLAS * np.abs(ref[same]).max()

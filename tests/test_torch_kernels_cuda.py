@@ -199,9 +199,10 @@ def test_region_fused_kernel_matches_plain(cuda_device, dtype, variant,
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_region_split_kernels_match_plain(cuda_device, dtype):
-    """The split x16 pair (#6): surfaces kernel against the plain
-    surfaces, extract kernel against the plain extract on the same
-    surfaces, both within 1e-2 absolute; spilled edges included."""
+    """The split x16 pair: the surfaces producer (csrc/corr_box.cu, #2 on
+    the split route) against the plain surfaces, the extract kernel (#6)
+    against the plain extract on the same surfaces, both within 1e-2
+    absolute; spilled edges included."""
     g, pyr, c, k, j, v = _to_dev(corr_case(4, spread=12.0), cuda_device,
                                  dtype)
     n0 = (_native.LAUNCHES["corr_region_surfaces"],
@@ -296,6 +297,71 @@ def test_region_extract_edge_cases(cuda_device, case, dtype):
     elif case == "invalid_edges":
         assert not bool(out[~vb].any()) and not bool(spill[~vb].any())
         assert bool(spill.any())
+
+
+SURF_CASES = ("map_edges", "map_smaller_than_region", "invalid_edges",
+              "ragged_E", "one_edge")
+
+
+def surfaces_case(case, seed=17):
+    """Inputs of one of the surfaces producer's edge cases (numpy)."""
+    if case == "map_smaller_than_region":
+        # 12x16 and 3x4 maps: every region leaves the map
+        return corr_case(seed, E=512, H=12, W=16, spread=3.0)
+    if case == "ragged_E":
+        # not a multiple of the edges per block
+        return corr_case(seed, E=1003, spread=3.0)
+    if case == "one_edge":
+        return corr_case(seed, E=1, spread=3.0)
+    gmap, fmaps, coords, kk, jj, valid = corr_case(seed, E=1024, spread=1.0)
+    if case == "invalid_edges":
+        return gmap, fmaps, coords, kk, jj, \
+            np.random.default_rng(seed).random(1024) > 0.5
+    # map_edges: a quarter of the edges each with centres within 3 px of
+    # the top, bottom, left and right border (regions 5-11 rows or columns
+    # off the map at level 1), compact patches
+    rng = np.random.default_rng(seed)
+    E, H, W = 1024, 96, 128
+    side = np.arange(E) % 4
+    near = rng.uniform(-3.0, 3.0, E)
+    cy = np.where(side == 0, near, np.where(side == 1, H + near,
+                                            rng.uniform(8, H - 8, E)))
+    cx = np.where(side == 2, near, np.where(side == 3, W + near,
+                                            rng.uniform(8, W - 8, E)))
+    off = np.arange(3) - 1.0
+    x = cx[:, None, None] + off[None, None, :]
+    y = cy[:, None, None] + off[None, :, None]
+    coords = np.stack(np.broadcast_arrays(x, y), -1).astype(np.float32)
+    return gmap, fmaps, coords, kk, jj, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SURF_CASES)
+def test_region_surfaces_edge_cases(cuda_device, case, dtype):
+    """The surfaces producer (csrc/corr_box.cu, #2 on the split route)
+    against the plain surfaces, within 1e-2 absolute on bf16 features
+    (tensor-core sums of 128 exact products, other order) and 1e-4 on
+    fp32 (fp32 FMAs); invalid edges give exactly zero planes; the extract
+    on these surfaces equals the fused plain version within 1e-2."""
+    g, pyr, c, k, j, v = _to_dev(surfaces_case(case), cuda_device, dtype)
+    n0 = _native.LAUNCHES["corr_region_surfaces"]
+    surf = tregion.region_surfaces(g, pyr, c, k, j, v)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["corr_region_surfaces"] == n0 + 1
+    tol = TOL_CORR_ABS if dtype == torch.bfloat16 else 1e-4
+    ref = tregion.region_surfaces_plain(g, pyr, c, k, j, v)
+    torch.testing.assert_close(surf, ref, rtol=0, atol=tol)
+    vb = v.bool()
+    assert not bool(surf[~vb].any())
+    out, _ = tregion.region_extract(surf, g, pyr, c, k, j, v)
+    full, _ = tregion.region_corr_plain(g, pyr, c, k, j, v, "x16")
+    torch.testing.assert_close(out, full, rtol=0, atol=TOL_CORR_ABS)
+    if case == "map_edges":
+        H, W = pyr[0].shape[1:3]
+        _, _, oy, ox, _, _ = tregion.geometry(c, "x16", H, W)
+        side = torch.arange(c.shape[0], device=c.device) % 4
+        off = torch.stack([oy < 0, oy + 16 > H, ox < 0, ox + 16 > W], 1)
+        assert bool(off.gather(1, side[:, None]).all())
 
 
 def test_region_map_smaller_than_region(cuda_device):
@@ -433,10 +499,12 @@ def test_corr_box_edge_cases(cuda_device, case, entry, dtype):
         assert not bool(out.any())
 
 
-@pytest.mark.parametrize("d", [8, 54, 72, 128, 256])
+@pytest.mark.parametrize("d", [1, 2, 7, 8, 9, 15, 16, 17, 33, 54, 72, 100,
+                               128, 255, 256])
 def test_chol_kernel_matches_plain(cuda_device, d):
     """csrc/chol.cu against cholesky_ex + cholesky_solve on the card, with
-    the tolerance of the JAX package's chol test (rtol 2e-4, atol 2e-5)."""
+    the tolerance of the JAX package's chol test (rtol 2e-4, atol 2e-5),
+    across the edges of its 16-column panels (ragged last panels)."""
     rng = np.random.default_rng(d)
     A = rng.normal(size=(d, d)).astype(np.float32)
     S = torch.from_numpy(A @ A.T + d * np.eye(d, dtype=np.float32))
@@ -461,13 +529,63 @@ def test_chol_kernel_rejects_what_it_cannot_take(cuda_device):
                                torch.ones(8))
 
 
-@pytest.mark.parametrize("kind", ["minus-identity", "zero", "last-pivot"])
+def test_chol_kernel_ill_conditioned(cuda_device):
+    """An SPD S with condition number 1e4 (eigenvalues 1 .. 1e4): the
+    kernel and the plain version each lie within about kappa * 2^-24 of the
+    exact solution, so within 2 kappa 2^-24 (1.2e-3) of the largest |x| of
+    each other; the kernel's residual is that of a backward-stable
+    solve, below 1e-5 of |S| |x|."""
+    rng = np.random.default_rng(23)
+    d = 72
+    Q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    S64 = (Q * np.logspace(0, 4, d)) @ Q.T
+    S = torch.from_numpy(((S64 + S64.T) / 2).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=d).astype(np.float32))
+    x = tchol.chol_solve_small(S.to(cuda_device), y.to(cuda_device))
+    ref = tchol.chol_solve_small_plain(S.to(cuda_device), y.to(cuda_device))
+    torch.cuda.synchronize()
+    kappa = float(np.linalg.cond(S.double().numpy()))
+    assert 0.5e4 < kappa < 2e4
+    tol = 2 * kappa * 2.0 ** -24 * ref.abs().max().item()
+    assert (x - ref).abs().max().item() <= tol
+    xd, Sd = x.double().cpu(), S.double()
+    resid = (Sd @ xd - y.double()).norm() / (
+        torch.linalg.matrix_norm(Sd, 2) * xd.norm())
+    assert resid.item() < 1e-5
+
+
+def not_spd(kind):
+    """A symmetric S that is not SPD, by where its first non-positive
+    pivot falls (as tests/test_torch_chol.py builds them): -I, 0, a
+    negative last pivot of the first panel, a zero pivot at the last index
+    only, a negative pivot at the first and at the last column of the
+    second panel."""
+    if kind == "minus-identity":
+        return -torch.eye(16)
+    if kind == "zero":
+        return torch.zeros(16, 16)
+    if kind == "last-pivot":
+        return torch.diag(torch.cat([torch.ones(15), -torch.ones(1)]))
+    d = 72 if kind == "zero-last-pivot" else 40
+    rng = np.random.default_rng(d)
+    A = rng.normal(size=(d, d)).astype(np.float32)
+    S = torch.from_numpy(A @ A.T + d * np.eye(d, dtype=np.float32))
+    if kind == "zero-last-pivot":
+        S[-1, :] = 0.0
+        S[:, -1] = 0.0
+    else:
+        k = {"negative-panel-first": 16, "negative-panel-last": 31}[kind]
+        S[k, k] = -S[k, k]
+    return S
+
+
+@pytest.mark.parametrize("kind", ["minus-identity", "zero", "last-pivot",
+                                  "zero-last-pivot", "negative-panel-first",
+                                  "negative-panel-last"])
 def test_chol_kernel_not_spd_gives_nan(cuda_device, kind):
     """A non-positive pivot anywhere makes all of x NaN, as in the plain
     version."""
-    S = {"minus-identity": -torch.eye(16), "zero": torch.zeros(16, 16),
-         "last-pivot": torch.diag(torch.cat([torch.ones(15),
-                                             -torch.ones(1)]))}[kind]
+    S = not_spd(kind)
     x = tchol.chol_solve_small(S.to(cuda_device),
-                               torch.ones(16, device=cuda_device))
+                               torch.ones(S.shape[0], device=cuda_device))
     assert torch.isnan(x).all()

@@ -9,7 +9,7 @@ from wild_video_3d_reconstruction_torch import profile_frames as pf
 def test_port_kernel_sources_name_every_kernel():
     assert pf.port_kernel_sources() == {
         "chol_solve_kernel": "chol.cu", "corr_box_kernel": "corr_box.cu",
-        "region_kernel": "corr_region.cu", "extract_kernel": "corr_region.cu",
+        "surfaces_kernel": "corr_box.cu", "extract_kernel": "corr_region.cu",
         "runsum_boundary": "runsum.cu", "runsum_apply": "runsum.cu"}
 
 

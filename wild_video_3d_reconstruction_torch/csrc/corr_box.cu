@@ -17,7 +17,11 @@
 // overlaps the map but does not fit the x32 or x16 region
 // (`ops/corr_region.py:geometry`), the counterpart of the JAX clip count.
 // The flags come from the region geometry alone; they do not change how
-// the values are computed.
+// the values are computed. The split route's surfaces, the raw x16
+// surfaces of `_corr_kernel4` that the extract of `csrc/corr_region.cu`
+// reads, come from a second kernel below the body (`surfaces_kernel`,
+// `wv3d_corr_region_surfaces_x16`), with its own note; it shares the
+// body's geometry and tensor-core helpers.
 //
 // Bound. Device-memory bytes: the features of the edges' patches, the
 // in-map positions of their windows (each once), the coordinates and the
@@ -576,6 +580,333 @@ int dispatch_box(const void* gmap, const void* fmap1, const void* fmap2,
                            spill, spill_rw, E, H1, W1, H2, W2, st);
 }
 
+// ---------------------------------------------------------------------------
+// The split route's x16 surfaces (`wv3d_corr_region_surfaces_x16`).
+//
+// Replaces the surfaces of `_corr_kernel4` (ops/pallas_corr.py:123) as
+// `_surfaces4` (:503) launches it on the split route
+// (`_pallas_corr_level4(extract="pallas")`): for every edge, level, patch
+// pixel p and position (r, c) of the 16 x 16 region at the x16 origin
+// (the least window start of the nine pixels, `ops/corr_region.py:
+// geometry`), the 128-d product of gmap[kk][:, p] with
+// fmap[jj][oy + r, ox + c], zero off the map, zero for invalid edges,
+// written as surf [E, 2, 9, 16, 16] fp32 for the extract of
+// `csrc/corr_region.cu`.
+//
+// Bound. Device-memory bytes: the 18 KB of fp32 surfaces each edge writes
+// (1.02 GB at E = 55 296) and the in-map region positions read (each
+// once). Beyond that the kernel moves each edge's regions, 64 KB of bf16
+// per level, from L2 (7.2 GB at E = 55 296; regions of different edges
+// overlap little), and reads the maps from device memory again wherever
+// they have left L2 (the 36-frame /4 map alone is 113 MB).
+//
+// Design. One warp per edge, no block barrier inside an edge. A region is
+// read once and has no reuse inside its edge, so it is not staged in
+// shared memory: bf16 features load straight into the B fragments of
+// mma.sync m16n8k16 (bf16 -> fp32). A product sums over channels in any
+// order, so A and B share a channel permutation in which each lane's B
+// fragments of a k-step pair are one 16-byte piece of its position: lane
+// (g, q) (g = lane / 4, q = lane % 4) holds channels 32 kp + 8 q + (0..7)
+// of position g of its n-tile for k-step pair kp, as (0,1 | 2,3) for the
+// first k-step and (4,5 | 6,7) for the second. A (the nine patch rows,
+// rows 9-15 zero) is loaded in the same order once per edge and kept in
+// registers for both levels. Every product of two bf16 values is exact in
+// fp32; only the order of the sums differs from the plain version.
+// Positions off the map are predicated off their load and read as zero.
+// A level's 256 positions go in chunks of 32 (two region rows, four
+// n-tiles): the loads of kSurfTiles n-tiles issue together, then their
+// products; the chunk's accumulators (rows 0-8) pass through the warp's
+// 1.4 KB of shared memory so that each pixel's 128 bytes of the chunk
+// leave as whole lines, in 16-byte streaming stores (st.global.cs: the
+// surfaces are read once, by the extract). An invalid edge writes its
+// 18 KB of zeros at once.
+// Map traffic. The grid is one wave of blocks (kSurfWarps edges each, two
+// per SM), and every block takes every G-th edge and works through them
+// in the order of their target frames, so all blocks sweep the frames
+// together and the frames in flight stay in L2, whatever the order of the
+// edge list. The map loads keep their lines in L1, which the SM's other
+// warps, on the same frames, then hit. (scripts/torch_chol_surfaces_ab.py
+// times the kernel without either, and PERF.md has the readings.)
+// fp32 features (no mixed precision) take a SIMT instantiation: a lane per
+// position of the chunk, the patch features as broadcast loads, fp32 FMAs
+// (no TF32). Static shared memory only (13.3 KB a block): no attribute to
+// set.
+
+constexpr int kSurfWarps = 8;               // edges (one per warp) per block
+constexpr int kSurfTiles = 4;               // n-tiles whose loads go together
+constexpr int kSurfMinBlocks = 2;           // blocks per SM (register cap)
+constexpr int kRS = 16;                     // region side
+constexpr int kRPos = kRS * kRS;            // positions per level
+constexpr int kChunk = 32;                  // positions per chunk
+constexpr int kChunkRow = kChunk + 8;       // staged floats per pixel (+8: banks)
+constexpr int kSortRun = 256;               // edges a block sorts by frame
+
+// 16 bytes of global memory where pred holds, else zeros (the load is
+// predicated off, not branched around)
+__device__ __forceinline__ uint4 ldg16_if(const void* p, bool pred) {
+  uint4 v;
+  asm("{\n"
+      " .reg .pred p;\n"
+      " setp.ne.b32 p, %4, 0;\n"
+      " mov.b32 %0, 0;\n"
+      " mov.b32 %1, 0;\n"
+      " mov.b32 %2, 0;\n"
+      " mov.b32 %3, 0;\n"
+      " @p ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%5];\n"
+      "}\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "r"(static_cast<int>(pred)), "l"(p));
+  return v;
+}
+
+// two bf16 values (raw bits) as one 32-bit fragment register, lo first
+__device__ __forceinline__ uint32_t pack_bf16(const unsigned short* p,
+                                              int lo, int hi) {
+  return static_cast<uint32_t>(__ldg(p + lo)) |
+         static_cast<uint32_t>(__ldg(p + hi)) << 16;
+}
+
+// One warp: the surfaces of edge e, with the warp's shared memory ws.
+template <typename T>
+__device__ void surfaces_edge(const T* __restrict__ gmap,
+                              const T* __restrict__ fmap1,
+                              const T* __restrict__ fmap2,
+                              const float* __restrict__ coords,
+                              const int* __restrict__ kk,
+                              const int* __restrict__ jj,
+                              const unsigned char* __restrict__ valid,
+                              float* __restrict__ surf, int e, int H1, int W1,
+                              int H2, int W2, int lane, float* ws) {
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  float4* se = reinterpret_cast<float4*>(surf) +
+               static_cast<size_t>(e) * 2 * kNP * kRPos / 4;
+  if (!valid[e]) {
+    for (int i = lane; i < 2 * kNP * kRPos / 4; i += 32)
+      __stcs(se + i, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    return;
+  }
+  // the x16 origins of both levels: warp minima over the nine pixels
+  const bool px = lane < kNP;
+  const float2 cxy =
+      px ? __ldg(reinterpret_cast<const float2*>(coords) +
+                 static_cast<size_t>(e) * kNP + lane)
+         : make_float2(0.0f, 0.0f);
+  int oy[2], ox[2];
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    const float inv_s = l ? 0.25f : 1.0f;
+    oy[l] = __reduce_min_sync(~0u, px ? window_start(cxy.y, inv_s) : INT_MAX);
+    ox[l] = __reduce_min_sync(~0u, px ? window_start(cxy.x, inv_s) : INT_MAX);
+  }
+  const int k = kk[e], j = jj[e];
+
+  if constexpr (kMma) {
+    const int g = lane >> 2, q = lane & 3;
+    // A fragments a[kp][h] of k-step 2 kp + h in the shared permutation;
+    // gmap[k] is [C, 3, 3], element c * 9 + p
+    const unsigned short* gk = reinterpret_cast<const unsigned short*>(gmap) +
+                               static_cast<size_t>(k) * kC * kNP;
+    uint32_t a[4][2][4];
+#pragma unroll
+    for (int kp = 0; kp < 4; ++kp) {
+      uint32_t r0[4], r8[4];  // pixel g; pixel 8 (lanes of g = 0) or zero
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 32 * kp + 8 * q + 2 * i;
+        r0[i] = pack_bf16(gk, c * kNP + g, (c + 1) * kNP + g);
+        r8[i] = g == 0 ? pack_bf16(gk, c * kNP + 8, (c + 1) * kNP + 8) : 0u;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        a[kp][h][0] = r0[2 * h];
+        a[kp][h][1] = r8[2 * h];
+        a[kp][h][2] = r0[2 * h + 1];
+        a[kp][h][3] = r8[2 * h + 1];
+      }
+    }
+    for (int l = 0; l < 2; ++l) {
+      const int H = l ? H2 : H1, W = l ? W2 : W1;
+      const T* fj = (l ? fmap2 : fmap1) + static_cast<size_t>(j) * H * W * kC;
+      float4* plane = se + static_cast<size_t>(l) * kNP * kRPos / 4;
+      for (int ch = 0; ch < kRPos / kChunk; ++ch) {
+        float acc[4][4] = {};
+#pragma unroll
+        for (int t0 = 0; t0 < 4; t0 += kSurfTiles) {
+          uint4 b[kSurfTiles][4];
+#pragma unroll
+          for (int ti = 0; ti < kSurfTiles; ++ti) {
+            // position ch * 32 + 8 i + g: region row 2 ch + i / 2,
+            // column 8 (i % 2) + g
+            const int i = t0 + ti;
+            const int y = oy[l] + 2 * ch + (i >> 1);
+            const int x = ox[l] + 8 * (i & 1) + g;
+            const bool in = y >= 0 && y < H && x >= 0 && x < W;
+            const uint4* src =
+                reinterpret_cast<const uint4*>(
+                    fj + (static_cast<size_t>(in ? y : 0) * W + (in ? x : 0)) *
+                             kC) + q;
+#pragma unroll
+            for (int kp = 0; kp < 4; ++kp) b[ti][kp] = ldg16_if(src + 4 * kp, in);
+          }
+#pragma unroll
+          for (int ti = 0; ti < kSurfTiles; ++ti)
+#pragma unroll
+            for (int kp = 0; kp < 4; ++kp) {
+              mma_bf16(acc[t0 + ti], a[kp][0], b[ti][kp].x, b[ti][kp].y);
+              mma_bf16(acc[t0 + ti], a[kp][1], b[ti][kp].z, b[ti][kp].w);
+            }
+        }
+        // accumulator r of tile i: pixel g + 8 (r / 2), position
+        // 8 i + 2 q + r % 2 of the chunk
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          *reinterpret_cast<float2*>(ws + g * kChunkRow + 8 * i + 2 * q) =
+              make_float2(acc[i][0], acc[i][1]);
+          if (g == 0)
+            *reinterpret_cast<float2*>(ws + 8 * kChunkRow + 8 * i + 2 * q) =
+                make_float2(acc[i][2], acc[i][3]);
+        }
+        __syncwarp();
+        for (int i = lane; i < kNP * kChunk / 4; i += 32) {
+          const int p = i >> 3, c4 = i & 7;
+          __stcs(plane + p * (kRPos / 4) + ch * (kChunk / 4) + c4,
+                 *reinterpret_cast<const float4*>(ws + p * kChunkRow + 4 * c4));
+        }
+        __syncwarp();  // the stage is free for the next chunk
+      }
+    }
+  } else {
+    // gmap[k] is [C, 3, 3]: the 36 values of 4 channels are 9 float4s,
+    // read by all lanes at once (one broadcast each)
+    const float4* gk = reinterpret_cast<const float4*>(gmap) +
+                       static_cast<size_t>(k) * kC * kNP / 4;
+    for (int l = 0; l < 2; ++l) {
+      const int H = l ? H2 : H1, W = l ? W2 : W1;
+      const float* fj = reinterpret_cast<const float*>(l ? fmap2 : fmap1) +
+                        static_cast<size_t>(j) * H * W * kC;
+      float* plane = reinterpret_cast<float*>(se) +
+                     static_cast<size_t>(l) * kNP * kRPos;
+      for (int ch = 0; ch < kRPos / kChunk; ++ch) {
+        const int pos = ch * kChunk + lane;
+        const int y = oy[l] + (pos >> 4);
+        const int x = ox[l] + (pos & (kRS - 1));
+        const bool in = y >= 0 && y < H && x >= 0 && x < W;
+        const float4* src = reinterpret_cast<const float4*>(
+            fj + (static_cast<size_t>(in ? y : 0) * W + (in ? x : 0)) * kC);
+        float acc[kNP] = {};
+#pragma unroll 2
+        for (int c4 = 0; c4 < kC / 4; ++c4) {
+          float4 f = __ldg(src + c4);
+          if (!in) f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          float g[4 * kNP];   // g[i * 9 + p]: channel 4 c4 + i, pixel p
+#pragma unroll
+          for (int q = 0; q < kNP; ++q) {
+            const float4 v = __ldg(gk + kNP * c4 + q);
+            g[4 * q] = v.x;
+            g[4 * q + 1] = v.y;
+            g[4 * q + 2] = v.z;
+            g[4 * q + 3] = v.w;
+          }
+#pragma unroll
+          for (int p = 0; p < kNP; ++p) {
+            acc[p] = fmaf(f.x, g[p], acc[p]);
+            acc[p] = fmaf(f.y, g[kNP + p], acc[p]);
+            acc[p] = fmaf(f.z, g[2 * kNP + p], acc[p]);
+            acc[p] = fmaf(f.w, g[3 * kNP + p], acc[p]);
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < kNP; ++p) __stcs(plane + p * kRPos + pos, acc[p]);
+      }
+    }
+  }
+}
+
+// Every block takes every G-th edge and goes through them kSortRun at a
+// time, each run in the order of its target frames (invalid edges last);
+// the grid of G blocks is one wave, so all blocks sweep the frames
+// together and the maps they read at a time stay in L2.
+template <typename T>
+__global__ void __launch_bounds__(kSurfWarps * 32, kSurfMinBlocks)
+surfaces_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
+                const T* __restrict__ fmap2, const float* __restrict__ coords,
+                const int* __restrict__ kk, const int* __restrict__ jj,
+                const unsigned char* __restrict__ valid,
+                float* __restrict__ surf, int E, int H1, int W1, int H2,
+                int W2) {
+  constexpr int kWarpSmem = kNP * kChunkRow;  // the bf16 path's chunk stage
+  __shared__ float4 smem4[kSurfWarps * kWarpSmem / 4];
+  __shared__ int key_s[kSortRun], order_s[kSortRun];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  float* ws = reinterpret_cast<float*>(smem4) + warp * kWarpSmem;
+  // block b's edges: b, b + G, b + 2 G, ... (a sample of every part of
+  // the edge list, whatever its order)
+  const int G = gridDim.x;
+  const int n_block = (E - static_cast<int>(blockIdx.x) + G - 1) / G;
+  for (int r0 = 0; r0 < n_block; r0 += kSortRun) {
+    const int n = min(kSortRun, n_block - r0);
+    for (int i = t; i < n; i += kSurfWarps * 32) {
+      const int e = blockIdx.x + (r0 + i) * G;
+      key_s[i] = valid[e] ? jj[e] : INT_MAX;
+    }
+    __syncthreads();
+    // a stable rank sort by frame
+    for (int i = t; i < n; i += kSurfWarps * 32) {
+      const int key = key_s[i];
+      int rank = 0;
+      for (int m = 0; m < n; ++m) {
+        const int km = key_s[m];
+        rank += km < key || (km == key && m < i);
+      }
+      order_s[rank] = blockIdx.x + (r0 + i) * G;
+    }
+    __syncthreads();
+    for (int i = warp; i < n; i += kSurfWarps)
+      surfaces_edge(gmap, fmap1, fmap2, coords, kk, jj, valid, surf,
+                    order_s[i], H1, W1, H2, W2, lane, ws);
+    __syncthreads();  // key_s and order_s are free for the next run
+  }
+}
+
+// One wave of blocks: as many as the SMs hold at once (queried once per
+// process and feature type).
+template <typename T>
+int surfaces_grid(int E, int& grid) {
+  static int wave = 0;
+  if (wave == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, surfaces_kernel<T>, kSurfWarps * 32, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    wave = sms * per_sm;
+  }
+  grid = min(E, wave);
+  return static_cast<int>(cudaSuccess);
+}
+
+template <typename T>
+int launch_surfaces(const void* gmap, const void* fmap1, const void* fmap2,
+                    const void* coords, const void* kk, const void* jj,
+                    const void* valid, void* surf, int E, int H1, int W1,
+                    int H2, int W2, cudaStream_t st) {
+  int grid = 0;
+  const int err = surfaces_grid<T>(E, grid);
+  if (err != 0) return err;
+  surfaces_kernel<T><<<grid, kSurfWarps * 32, 0, st>>>(
+      static_cast<const T*>(gmap), static_cast<const T*>(fmap1),
+      static_cast<const T*>(fmap2), static_cast<const float*>(coords),
+      static_cast<const int*>(kk), static_cast<const int*>(jj),
+      static_cast<const unsigned char*>(valid), static_cast<float*>(surf), E,
+      H1, W1, H2, W2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // gmap [S, 128, 3, 3], fmap1 [F, H1, W1, 128], fmap2 [F, H2, W2, 128] in
@@ -612,4 +943,21 @@ extern "C" int wv3d_corr_region_fused_x16(
     int feat_bf16, void* stream) {
   return dispatch_box(gmap, fmap1, fmap2, coords, kk, jj, valid, out, spill,
                       16, E, H1, W1, H2, W2, feat_bf16, stream);
+}
+
+// The split route's first kernel: surf [E, 2, 9, 16, 16] fp32, the x16
+// surfaces of both levels (zero for invalid edges), read by
+// `wv3d_corr_region_extract_x16` (csrc/corr_region.cu).
+extern "C" int wv3d_corr_region_surfaces_x16(
+    const void* gmap, const void* fmap1, const void* fmap2,
+    const void* coords, const void* kk, const void* jj, const void* valid,
+    void* surf, int E, int H1, int W1, int H2, int W2, int feat_bf16,
+    void* stream) {
+  if (E <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (feat_bf16)
+    return launch_surfaces<__nv_bfloat16>(gmap, fmap1, fmap2, coords, kk, jj,
+                                          valid, surf, E, H1, W1, H2, W2, st);
+  return launch_surfaces<float>(gmap, fmap1, fmap2, coords, kk, jj, valid,
+                                surf, E, H1, W1, H2, W2, st);
 }

@@ -1,17 +1,18 @@
-// The split x16 region correlation pair over a two-level feature pyramid
-// (Hopper, sm_90a).
+// The split x16 region correlation pair's second kernel, the window
+// extraction (Hopper, sm_90a).
 //
-// Replaces the JAX package's split x16 path: the surfaces of
-// `_corr_kernel4` (ops/pallas_corr.py:123, launched by `_surfaces4`) and
-// the standalone window extraction `_extract_kernel4` (:230,
-// `_extract_windows4`), which `patch_corr_pyramid_pallas(extract=
-// "pallas")` runs. The function is `ops/corr.py`'s `patch_corr_pyramid`:
-// for every edge, patch pixel and level, the 128-d products of gmap[kk]
-// with the 8x8 window of fmap[jj] at floor(coords / scale) - 3 (zero off
-// the map), blended bilinearly to 7x7, written as the [E, 882] feature
-// (dx, dy, pi, pj, level). The plain version and the geometry are in
-// `ops/corr_region.py`. (The fused routes and the unfused one run the
-// correlation body of `csrc/corr_box.cu`.)
+// Replaces the JAX package's standalone window extraction
+// `_extract_kernel4` (ops/pallas_corr.py:230, `_extract_windows4`), which
+// `patch_corr_pyramid_pallas(extract="pallas")` runs after the x16
+// surfaces of `_corr_kernel4` (:123, `_surfaces4`). The pair computes
+// `ops/corr.py`'s `patch_corr_pyramid`: for every edge, patch pixel and
+// level, the 128-d products of gmap[kk] with the 8x8 window of fmap[jj] at
+// floor(coords / scale) - 3 (zero off the map), blended bilinearly to 7x7,
+// written as the [E, 882] feature (dx, dy, pi, pj, level). The plain
+// version and the geometry are in `ops/corr_region.py`. The surfaces
+// [E, 2, 9, 16, 16] that this kernel reads come from `surfaces_kernel` of
+// `csrc/corr_box.cu` (`wv3d_corr_region_surfaces_x16`), beside the
+// correlation body that the fused and unfused routes run.
 //
 // Region geometry (per edge and level): the nine window starts (ys, xs);
 // the region origin oy = min ys, ox = min xs (the x16 geometry, the only
@@ -20,13 +21,6 @@
 // pixel that does not fit but overlaps the map takes the spill path, its
 // window computed straight from the map, so the result is exact for any
 // spread. Positions off the map read as zero.
-//
-// The surfaces kernel (`region_kernel`): one block per edge, one thread
-// per region position. The 9x128 patch features sit in shared memory as
-// fp32; the region is staged one 32-channel chunk at a time (16-byte
-// loads, a padded stride); each thread forms its position's nine surface
-// values with fp32 FMAs and writes the surfaces of both levels. It moves
-// 18 KB of fp32 surfaces per edge to device memory by design.
 //
 // The extract kernel (`extract_kernel`). Bound: device-memory bytes, the
 // 8x8 surface window of each fitting pixel, the map and the patch features
@@ -73,8 +67,6 @@ constexpr int kD = 2 * kR + 2;             // raw window side (8)
 constexpr int kDO = 2 * kR + 1;            // blended side (7)
 constexpr int kOut = kDO * kDO * kNP * 2;  // 882
 constexpr int kRH = 16;                    // region rows
-constexpr int kCH = 32;                    // channels staged per pass
-constexpr int kCS = kCH + 4;               // staged floats per position
 constexpr float kCoordLim = 1e6f;
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -82,123 +74,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 v = __bfloat1622float2(h[k]);
-    f[2 * k] = v.x;
-    f[2 * k + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
 // NaN -> +lim, then clamp to [-lim, lim] (as torch.nan_to_num + clamp)
 __device__ __forceinline__ float clamp_coord(float v) {
   return v != v ? kCoordLim : fminf(fmaxf(v, -kCoordLim), kCoordLim);
-}
-
-// The region origin of one edge at one level, the minimum window start of
-// its nine pixels (oy, ox), written by one thread.
-__device__ void region_origin(const float* cp, float s, int2& o) {
-  int oy = INT_MAX, ox = INT_MAX;
-  for (int p = 0; p < kNP; ++p) {
-    oy = min(oy, static_cast<int>(floorf(clamp_coord(cp[2 * p + 1] / s))));
-    ox = min(ox, static_cast<int>(floorf(clamp_coord(cp[2 * p] / s))));
-  }
-  o = make_int2(oy - kR, ox - kR);
-}
-
-template <typename T>
-__device__ void load_patch(const T* gmap, size_t k, float* g_s, int t,
-                           int nthreads) {
-  // gmap[k] is [C, 3, 3]: element i = c * 9 + p
-  for (int i = t; i < kNP * kC; i += nthreads)
-    g_s[(i % kNP) * kC + i / kNP] = to_float(gmap[k * kNP * kC + i]);
-}
-
-// The surfaces kernel: out is [E, 2, 9, 16, RW] surfaces over the full
-// region, zero for invalid edges.
-template <int RW, typename T>
-__global__ void __launch_bounds__(kRH * RW)
-region_kernel(const T* __restrict__ gmap, const T* __restrict__ fmap1,
-              const T* __restrict__ fmap2, const float* __restrict__ coords,
-              const int* __restrict__ kk, const int* __restrict__ jj,
-              const unsigned char* __restrict__ valid,
-              float* __restrict__ out, int H1, int W1, int H2, int W2) {
-  constexpr int kThreads = kRH * RW;
-  constexpr int kPos = kRH * RW;
-  extern __shared__ float4 dyn_smem[];
-  float* g_s = reinterpret_cast<float*>(dyn_smem);  // [9][128]
-  float* reg_s = g_s + kNP * kC;                     // [kPos][kCS]
-  __shared__ int2 origin;
-
-  const int e = blockIdx.x;
-  const int t = threadIdx.x;
-  if (!valid[e]) {
-    for (int i = t; i < 2 * kNP * kPos; i += kThreads)
-      out[static_cast<size_t>(e) * 2 * kNP * kPos + i] = 0.0f;
-    return;
-  }
-  const int j = jj[e];
-  load_patch(gmap, static_cast<size_t>(kk[e]), g_s, t, kThreads);
-  const float* cp = coords + static_cast<size_t>(e) * kNP * 2;
-
-  for (int l = 0; l < 2; ++l) {
-    const T* fmap = l ? fmap2 : fmap1;
-    const int H = l ? H2 : H1;
-    const int W = l ? W2 : W1;
-    __syncthreads();  // g_s written; the previous level's smem consumed
-    if (t == 0) region_origin(cp, l ? 4.0f : 1.0f, origin);
-    __syncthreads();
-    const int oy = origin.x, ox = origin.y;
-
-    float acc[kNP];
-#pragma unroll
-    for (int p = 0; p < kNP; ++p) acc[p] = 0.0f;
-    for (int c0 = 0; c0 < kC; c0 += kCH) {
-      for (int i = t; i < kPos * (kCH / 8); i += kThreads) {
-        const int pos = i / (kCH / 8);
-        const int q = i % (kCH / 8);
-        const int y = oy + pos / RW;
-        const int x = ox + pos % RW;
-        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (y >= 0 && y < H && x >= 0 && x < W)
-          load8(fmap + ((static_cast<size_t>(j) * H + y) * W + x) * kC +
-                    c0 + 8 * q, f);
-        float4* dst = reinterpret_cast<float4*>(reg_s + pos * kCS + 8 * q);
-        dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-        dst[1] = make_float4(f[4], f[5], f[6], f[7]);
-      }
-      __syncthreads();
-      const float4* r4 = reinterpret_cast<const float4*>(reg_s + t * kCS);
-#pragma unroll
-      for (int c = 0; c < kCH / 4; ++c) {
-        const float4 r = r4[c];
-#pragma unroll
-        for (int p = 0; p < kNP; ++p) {
-          const float4 g =
-              reinterpret_cast<const float4*>(g_s + p * kC + c0)[c];
-          acc[p] = fmaf(r.x, g.x, acc[p]);
-          acc[p] = fmaf(r.y, g.y, acc[p]);
-          acc[p] = fmaf(r.z, g.z, acc[p]);
-          acc[p] = fmaf(r.w, g.w, acc[p]);
-        }
-      }
-      __syncthreads();
-    }
-    // position t = y * RW + x of the full region
-    float* so = out + (static_cast<size_t>(e) * 2 + l) * kNP * kPos;
-#pragma unroll
-    for (int p = 0; p < kNP; ++p) so[p * kPos + t] = acc[p];
-  }
 }
 
 // 4 bf16 or fp32 features -> fp32 (one 8- or 16-byte load)
@@ -424,60 +302,15 @@ extract_kernel(const float* __restrict__ surf, const T* __restrict__ gmap,
   if (lane == 0) spill_out[e] = g.spill_mask != 0;
 }
 
-template <int RW, typename T>
-int launch_region(const void* gmap, const void* fmap1, const void* fmap2,
-                  const void* coords, const void* kk, const void* jj,
-                  const void* valid, void* out, int E, int H1, int W1, int H2,
-                  int W2, cudaStream_t st) {
-  constexpr int kPos = kRH * RW;
-  const size_t smem = (kNP * kC + kPos * kCS) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      region_kernel<RW, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  region_kernel<RW, T><<<E, kRH * RW, smem, st>>>(
-      static_cast<const T*>(gmap), static_cast<const T*>(fmap1),
-      static_cast<const T*>(fmap2), static_cast<const float*>(coords),
-      static_cast<const int*>(kk), static_cast<const int*>(jj),
-      static_cast<const unsigned char*>(valid), static_cast<float*>(out), H1,
-      W1, H2, W2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int RW>
-int dispatch_region(const void* gmap, const void* fmap1, const void* fmap2,
-                    const void* coords, const void* kk, const void* jj,
-                    const void* valid, void* out, int E, int H1, int W1,
-                    int H2, int W2, int feat_bf16, void* stream) {
-  if (E <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (feat_bf16)
-    return launch_region<RW, __nv_bfloat16>(gmap, fmap1, fmap2, coords, kk,
-                                            jj, valid, out, E, H1, W1, H2, W2,
-                                            st);
-  return launch_region<RW, float>(gmap, fmap1, fmap2, coords, kk, jj, valid,
-                                  out, E, H1, W1, H2, W2, st);
-}
-
 }  // namespace
 
 // Arguments as `wv3d_corr_pyramid` (csrc/corr_box.cu): gmap [S, 128, 3, 3],
 // fmap1 [F, H1, W1, 128], fmap2 [F, H2, W2, 128] in bf16 (feat_bf16 != 0)
 // or fp32; coords [E, 3, 3, 2] fp32; kk, jj [E] int32 in [0, S) and
-// [0, F); valid [E] bool. Each returns the cudaError_t of its launch.
-// surf [E, 2, 9, 16, 16] fp32: the x16 surfaces of both levels.
-extern "C" int wv3d_corr_region_surfaces_x16(
-    const void* gmap, const void* fmap1, const void* fmap2,
-    const void* coords, const void* kk, const void* jj, const void* valid,
-    void* surf, int E, int H1, int W1, int H2, int W2, int feat_bf16,
-    void* stream) {
-  return dispatch_region<16>(gmap, fmap1, fmap2, coords, kk, jj, valid, surf,
-                             E, H1, W1, H2, W2, feat_bf16, stream);
-}
-
-// surf as written by wv3d_corr_region_surfaces_x16; out [E, 882] fp32 and
-// spill [E] bytes, 1 where a valid edge took the spill path at either
-// level, else 0 (the storage of a bool tensor).
+// [0, F); valid [E] bool; surf as `wv3d_corr_region_surfaces_x16` writes
+// it; out [E, 882] fp32 and spill [E] bytes, 1 where a valid edge took the
+// spill path at either level, else 0 (the storage of a bool tensor).
+// Returns the cudaError_t of the launch.
 extern "C" int wv3d_corr_region_extract_x16(
     const void* surf, const void* gmap, const void* fmap1, const void* fmap2,
     const void* coords, const void* kk, const void* jj, const void* valid,

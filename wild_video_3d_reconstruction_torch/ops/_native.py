@@ -158,4 +158,10 @@ def require_cuda(name, *tensors, dtypes=None):
 
 
 def stream_ptr(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current CUDA stream of `device` as a C pointer, through the raw
+    accessor that PyTorch's own generated kernels launch with: building a
+    `torch.cuda.Stream` object costs a few microseconds of host time per
+    launch."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))

@@ -41,8 +41,10 @@ def chol_solve_small(S, y):
     if not _native.on_cuda(S, y):
         return chol_solve_small_plain(S, y)
     _check(S, y)
-    S = S.float().contiguous()
-    y = y.float().contiguous()
+    if S.dtype != torch.float32 or not S.is_contiguous():
+        S = S.float().contiguous()
+    if y.dtype != torch.float32 or not y.is_contiguous():
+        y = y.float().contiguous()
     _native.require_cuda("chol_solve_small", S, y)
     x = torch.empty_like(y)
     err = _native.lib().wv3d_chol_solve(S.data_ptr(), y.data_ptr(),

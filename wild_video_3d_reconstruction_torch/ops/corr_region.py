@@ -22,8 +22,10 @@ from the map. The region geometry decides only which pixels spill.
     of the correlation body of `csrc/corr_box.cu` (which replaces #4, x32,
     and #5, x16; it stages its own box, so the region geometry decides
     only the spill flags); `fused=False, extract="kernel"` (x16) runs the
-    split pair of `csrc/corr_region.cu`, surfaces to device memory and
-    then the window selection (#6, `_extract_kernel4`).
+    split pair: the surfaces producer of `csrc/corr_box.cu` (#2 on the
+    split route, `_surfaces4`) writes the raw x16 surfaces to device
+    memory, then the extract of `csrc/corr_region.cu` selects the windows
+    (#6, `_extract_kernel4`).
   * `region_surfaces`, `region_extract`, `region_corr_fused`: the kernel
     wrappers. On CPU tensors they run the plain versions below; when any
     tensor is on the card they launch their kernel or raise.
@@ -213,7 +215,8 @@ def region_corr_fused(gmap, pyramid, coords, kk, jj, valid, variant):
 
 def region_surfaces(gmap, pyramid, coords, kk, jj, valid):
     """x16 surfaces [E, 2, 9, 16, 16] fp32 (zero for invalid edges): the
-    plain version for CPU tensors, the surfaces kernel for CUDA ones."""
+    plain version for CPU tensors, the surfaces producer of
+    `csrc/corr_box.cu` for CUDA ones."""
     if not _native.on_cuda(gmap, *pyramid, coords):
         return region_surfaces_plain(gmap, pyramid, coords, kk, jj, valid)
     name = "wv3d_corr_region_surfaces_x16"

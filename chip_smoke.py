@@ -7,11 +7,15 @@ version at default-config shapes (the correlation body of both routes also
 on patches spread wide enough to take its per-pixel path and the region
 spill path), drives the entry points of the kernels that no VO path runs
 (the split region pair, the Cholesky solve), then drives the DPVO main path
-(warm-up, motion probe, 12-iteration bootstrap, steady-state frames,
-terminate, TUM export) at configs/default.yaml and configs/fast.yaml, each
-unfused and with `PALLAS_FUSED: true`, on 384x512 synthetic frames with
-weights drawn from a seed, and checks small runs on the card (unfused,
-fused x32, fused x16) against the same runs on the CPU. Each VO run also
+(warm-up, motion probe, 12-iteration bootstrap, steady-state frames
+replayed as CUDA graphs, terminate, TUM export) at configs/default.yaml and
+configs/fast.yaml, each unfused and with `PALLAS_FUSED: true`, on 384x512
+synthetic frames with weights drawn from a seed; the steady loop after the
+first graph replay runs under `torch.cuda.set_sync_debug_mode("error")`.
+It checks small runs on the card through graph replay (unfused, fused x32,
+fused x16) against the same runs on the CPU and through `sync_mode` on the
+card, and the default.yaml graph run against two `sync_mode` runs. The
+kernel counts include the launches of every graph replay. Each VO run also
 reports the share of its correlation edge-levels that took the per-pixel
 path. Each phase prints one JSON line; the kernel summary and then the
 result line come last. Any failure exits non-zero without the result line;
@@ -76,6 +80,7 @@ E_FAST = 7168                    # fast config's steady live edges (~7 k)
 TOL_CORR_ABS = 1e-2
 TOL_RUNSUM_REL = 1e-5
 TOL_SLAM_TINY = 1e-2
+TOL_GRAPH_SYNC = 1e-4
 TOL_CHOL_RTOL, TOL_CHOL_ATOL = 2e-4, 2e-5   # the JAX package's chol test
 CHOL_DIMS = (54, 72, 256)
 
@@ -361,17 +366,22 @@ def per_pixel_share(pyr, coords, valid):
 class PerPixelTally:
     """Wraps the frame step's correlation lookup to count, over a VO run,
     the valid edge-levels and those that took the per-pixel path. The
-    count adds a few small launches per lookup to the timed run."""
+    counts add into two device scalars in place, so a CUDA graph captured
+    with the wrapper in place adds them on every replay; the runner's
+    eager warm-up before each capture (whose effects it undoes) is not
+    counted. The count adds a few small launches per lookup to the timed
+    run."""
 
-    def __init__(self):
-        self.counts = None
+    def __init__(self, runner):
+        self.counts = torch.zeros(2, dtype=torch.long, device=DEV)
         self.saved = steps.corr_lookup
+        self.runner = runner
 
     def __enter__(self):
         def lookup(gmap, pyramid, coords, kk, jj, valid, **kw):
-            c = per_pixel_counts(pyramid, coords, valid)
-            self.counts = c if self.counts is None else \
-                tuple(a + b for a, b in zip(self.counts, c))
+            if not self.runner.warming_up:
+                self.counts += torch.stack(
+                    per_pixel_counts(pyramid, coords, valid))
             return self.saved(gmap, pyramid, coords, kk, jj, valid, **kw)
         steps.corr_lookup = lookup
         return self
@@ -380,7 +390,7 @@ class PerPixelTally:
         steps.corr_lookup = self.saved
 
     def summary(self):
-        n_levels, n_per_pixel = (int(c) for c in self.counts)
+        n_levels, n_per_pixel = self.counts.tolist()
         return dict(edge_levels=n_levels, per_pixel_edge_levels=n_per_pixel,
                     per_pixel_share=n_per_pixel / max(n_levels, 1))
 
@@ -703,65 +713,135 @@ def synthetic_frames(n, seed=0, ht=None, wd=None):
             for t in range(n)]
 
 
-def phase_slam(name, config, n_frames, expect, fused=False):
-    """One VO run; fails unless each kernel in `expect` was launched."""
+def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False):
+    """One VO run; fails unless each kernel in `expect` was launched.
+    Steady frames replay CUDA graphs (the first one captures them); after
+    it the loop runs under `torch.cuda.set_sync_debug_mode("error")`, so
+    any synchronising call of the host loop raises, and the one counter
+    read per frame between replays (a pinned copy and an event) is
+    counted. With sync_mode the steady frames run the synchronous eager
+    path instead. Steady FPS is over the frames after the first steady
+    one. Returns (launches, poses, dropped frames)."""
     # MOTION_PROBE_THRESH=0: the motion probe runs on every warm-up frame
     # but accepts it (random weights give no meaningful flow to gate on)
     cfg = load_config(config, MOTION_PROBE_THRESH=0.0, PALLAS_FUSED=fused)
     frames = synthetic_frames(n_frames)
     intr = np.array([320.0, 320.0, WD / 2, HT / 2])
-    slam = DPVO(cfg, None, HT, WD, seed=0, device="cuda")
+    slam = DPVO(cfg, None, HT, WD, seed=0, device="cuda",
+                sync_mode=sync_mode)
+    runner = slam.runner
     torch.cuda.synchronize()
     _native.reset_launch_counts()
     t_start = time.perf_counter()
-    steady_t, steady_launch, max_edges = None, None, 0
-    with PerPixelTally() as tally:
-        for t, img in enumerate(frames):
-            if slam.is_initialized and steady_t is None:
-                torch.cuda.synchronize()
-                steady_t = time.perf_counter()
-                steady_launch = dict(_native.LAUNCHES)
-                n_steady0 = t
-            slam(t, img, intr)
-            max_edges = max(max_edges, slam.state.n_edges)
-        torch.cuda.synchronize()
+    n_steady0, t_first, first_launch, max_edges, reads0 = None, None, None, \
+        0, 0
+    with PerPixelTally(runner) as tally:
+        try:
+            for t, img in enumerate(frames):
+                if slam.is_initialized and n_steady0 is None:
+                    n_steady0 = t
+                    t_capture = time.perf_counter()
+                slam(t, img, intr)
+                if n_steady0 == t:
+                    # the first steady frame (graph mode: the capture) done
+                    torch.cuda.synchronize()
+                    t_first = time.perf_counter()
+                    first_launch = dict(_native.LAUNCHES)
+                    reads0 = runner.host_reads
+                    if not sync_mode:
+                        torch.cuda.set_sync_debug_mode("error")
+                # steady frames; graph mode: the counters the runner last
+                # read (no read of its own)
+                if n_steady0 is not None:
+                    max_edges = max(max_edges, int(slam.state.n_edges)
+                                    if sync_mode else
+                                    (runner.counts_host or [0, 0])[1])
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
     t_end = time.perf_counter()
     poses, tstamps = slam.terminate()
     launches = dict(_native.LAUNCHES)
-    if steady_t is None:
+    if n_steady0 is None or t_first is None:
         fail(f"{name}: DPVO never initialized")
-    n_steady = n_frames - n_steady0
+    n_timed = n_frames - n_steady0 - 1
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "traj.txt")
         export.save_trajectory_tum_format(poses, tstamps, path)
         back, _ = export.load_trajectory_tum_format(path)
-    per_frame = {k: (launches[k] - steady_launch[k]) / n_steady
+    per_frame = {k: (launches[k] - first_launch[k]) / n_timed
                  for k in launches}
     finite = bool(np.isfinite(poses).all())
+    gaps = runner.gaps_ms() if not sync_mode else []
+    graph = {} if sync_mode else dict(
+        tiers=list(runner.tiers), graphs_captured=len(runner.graphs),
+        replays_per_tier={str(k): v for k, v in runner.replays.items()},
+        counter_reads_per_timed_frame=(runner.host_reads - reads0) / n_timed,
+        sync_debug_mode="error after the first steady frame",
+        replay_gap_ms_median=statistics.median(gaps) if gaps else None,
+        replay_gap_ms_mean=statistics.mean(gaps) if gaps else None,
+        launches_per_replay={str(k): v for k, v in
+                             runner.graph_launches.items()})
     emit(name, config=config, fused=fused, variant=cfg.PALLAS_VARIANT,
-         frames=n_frames, HxW=[HT, WD],
+         sync_mode=sync_mode, frames=n_frames, HxW=[HT, WD],
          patches=cfg.PATCHES_PER_FRAME, initialized=slam.is_initialized,
-         keyframes=slam.n_host, n_edges=slam.state.n_edges,
-         max_n_edges=max_edges, steady_frames=n_steady,
-         fps_steady=n_steady / (t_end - steady_t),
+         keyframes=slam.n_host, n_edges=int(slam.state.n_edges),
+         max_n_edges=max_edges, steady_frames=n_frames - n_steady0,
+         timed_frames=n_timed, fps_steady=n_timed / (t_end - t_first),
+         first_steady_frame_s=t_first - t_capture,
          total_s=t_end - t_start, launches=launches,
          launches_per_steady_frame=per_frame, poses_finite=finite,
-         correlation=tally.summary(),
-         tum_rows=int(back.shape[0]),
+         correlation=tally.summary(), tum_rows=int(back.shape[0]),
          motion_gate="probe runs; MOTION_PROBE_THRESH=0 accepts every frame",
-         weights="random, seed 0")
+         weights="random, seed 0", **graph)
     if not finite or poses.shape != (n_frames, 7) or \
             back.shape != (n_frames, 7):
         fail(f"{name}: trajectory not finite or of the wrong shape")
     for k in expect:
         if launches[k] <= 0:
             fail(f"{name}: kernel {k} was not launched on the main path")
+    if not sync_mode and sum(runner.replays.values()) != n_frames - n_steady0:
+        fail(f"{name}: {sum(runner.replays.values())} graph replays for "
+             f"{n_frames - n_steady0} steady frames")
+    return launches, poses, sorted(slam.delta)
+
+
+def phase_graph_vs_sync_default(graph_run, n_frames):
+    """default.yaml through graph replay against two synchronous eager runs
+    of the same tree: the same keyframe drops; the graph run's poses
+    differ from the first eager run's by at most twice as much as the two
+    eager runs differ from each other (BA's index_add_ atomics make eager
+    runs differ)."""
+    expect = ("corr_pyramid", "runsum")
+    runs = [phase_slam(f"slam_default_sync_{i}", "configs/default.yaml",
+                       n_frames, expect, sync_mode=True) for i in (1, 2)]
+    (_, pa, kfa), (_, pb, kfb) = runs
+    _, pg, kfg = graph_run
+    eager_diff = float(np.abs(pa - pb).max())
+    graph_diff = float(np.abs(pg - pa).max())
+    same_kf = kfa == kfb == kfg
+    emit("graph_vs_sync_default", frames=n_frames,
+         max_abs_pose_diff_eager_vs_eager=eager_diff,
+         max_abs_pose_diff_graph_vs_eager=graph_diff,
+         tol=2 * eager_diff, same_keyframe_drops=same_kf,
+         keyframe_drops=len(kfg))
+    if not same_kf or not graph_diff <= 2 * eager_diff:
+        fail(f"default.yaml: graph replay differs from sync_mode by "
+             f"{graph_diff} (two eager runs: {eager_diff}), same keyframe "
+             f"drops: {same_kf}")
+    launches = dict.fromkeys(_native.LAUNCHES, 0)
+    for run in runs:
+        for k, v in run[0].items():
+            launches[k] += v
     return launches
 
 
 def phase_slam_tiny(fused=False, variant="x32", corr_kernel="corr_pyramid"):
-    """The VO slice at a tiny size in fp32 on the card (kernels) and on
-    the CPU (plain versions), same seed and frames: trajectories agree.
+    """The VO slice at a tiny size in fp32: on the card through graph
+    replay and through sync_mode (kernels), and on the CPU (plain
+    versions), same seed and frames. The card's graph run agrees with the
+    CPU run within 1e-2 and with the card's sync_mode run (and, unfused,
+    its PIPELINE_CHUNK = 4 run) within 1e-4, with the same keyframe drops.
     At 48x64 the /4 map is 3x4, smaller than any region: the region
     kernels' map-edge case."""
     cfg = DPVOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, REMOVAL_WINDOW=6,
@@ -773,26 +853,53 @@ def phase_slam_tiny(fused=False, variant="x32", corr_kernel="corr_pyramid"):
     frames = synthetic_frames(14, ht=ht, wd=wd)
     intr = np.array([40.0, 40.0, wd / 2, ht / 2])
     out = {}
-    for dev in ("cuda", "cpu"):
+    runs = [("graph", "cuda", False, cfg), ("sync", "cuda", True, cfg),
+            ("cpu", "cpu", False, cfg)]
+    if not fused:
+        # PIPELINE_CHUNK: 4 frames staged and uploaded at once, then 4
+        # replays (the run's 4 steady frames are one chunk)
+        runs.append(("chunk4", "cuda", False,
+                     cfg.merge_from_dict({"PIPELINE_CHUNK": 4})))
+    for run, dev, sync, run_cfg in runs:
         _native.reset_launch_counts()
-        slam = DPVO(cfg, None, ht, wd, seed=0, device=dev)
+        slam = DPVO(run_cfg, None, ht, wd, seed=0, device=dev,
+                    sync_mode=sync)
         for t, img in enumerate(frames):
             slam(t, img, intr)
-        out[dev] = (slam.terminate()[0], sorted(slam.delta),
-                    _native.LAUNCHES[corr_kernel])
-    diff = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
-    same_kf = out["cuda"][1] == out["cpu"][1]
+        replays = sum(slam.runner.replays.values())
+        out[run] = (slam.terminate()[0], sorted(slam.delta),
+                    _native.LAUNCHES[corr_kernel], replays)
+    diff = float(np.abs(out["graph"][0] - out["cpu"][0]).max())
+    diff_sync = float(np.abs(out["graph"][0] - out["sync"][0]).max())
+    same_kf = out["graph"][1] == out["cpu"][1] == out["sync"][1]
+    chunk, diff_chunk = {}, 0.0
+    if "chunk4" in out:
+        diff_chunk = float(np.abs(out["chunk4"][0] - out["graph"][0]).max())
+        chunk = dict(max_abs_pose_diff_chunk4_vs_1=diff_chunk,
+                     chunk4_replays=out["chunk4"][3])
+        same_kf = same_kf and out["chunk4"][1] == out["graph"][1]
     emit("slam_tiny_vs_cpu", fused=fused, variant=variant,
          frames=len(frames), max_abs_pose_diff=diff, tol=TOL_SLAM_TINY,
+         max_abs_pose_diff_graph_vs_sync=diff_sync, tol_sync=TOL_GRAPH_SYNC,
          same_keyframe_drops=same_kf, corr_kernel=corr_kernel,
-         corr_launches_card=out["cuda"][2], corr_launches_cpu=out["cpu"][2])
-    if not same_kf or not diff <= TOL_SLAM_TINY:
-        fail(f"tiny slice (fused={fused}, {variant}) on the card disagrees "
-             "with the CPU run")
-    if out["cuda"][2] <= 0 or out["cpu"][2] != 0:
+         graph_replays=out["graph"][3], **chunk,
+         corr_launches_card=out["graph"][2],
+         corr_launches_card_sync=out["sync"][2],
+         corr_launches_cpu=out["cpu"][2])
+    if not same_kf or not diff <= TOL_SLAM_TINY or \
+            not max(diff_sync, diff_chunk) <= TOL_GRAPH_SYNC:
+        fail(f"tiny slice (fused={fused}, {variant}) through graph replay "
+             f"disagrees with the CPU run ({diff}), sync_mode on the card "
+             f"({diff_sync}) or PIPELINE_CHUNK 4 ({diff_chunk}), same "
+             f"keyframe drops: {same_kf}")
+    if out["graph"][3] <= 0 or out["sync"][3] != 0:
+        fail(f"tiny slice (fused={fused}, {variant}): "
+             f"{out['graph'][3]} graph replays, {out['sync'][3]} in "
+             "sync_mode")
+    if min(out["graph"][2], out["sync"][2]) <= 0 or out["cpu"][2] != 0:
         fail(f"tiny slice (fused={fused}, {variant}): {corr_kernel} "
-             f"launched {out['cuda'][2]} times on the card and "
-             f"{out['cpu'][2]} on the CPU")
+             f"launched {out['graph'][2]} / {out['sync'][2]} times on the "
+             f"card and {out['cpu'][2]} on the CPU")
 
 
 def main():
@@ -817,6 +924,7 @@ def main():
     total = dict.fromkeys(_native.LAUNCHES, 0)
     for k, v in phase_entry_points(gen).items():
         total[k] += v
+    runs = {}
     for name, config, n, fused, corr in (
             ("slam_default", "configs/default.yaml", 40, False,
              "corr_pyramid"),
@@ -825,9 +933,11 @@ def main():
              "corr_region_fused_x16"),
             ("slam_fast_fused", "configs/fast.yaml", 24, True,
              "corr_region_fused_x32")):
-        for k, v in phase_slam(name, config, n, (corr, "runsum"),
-                               fused).items():
+        runs[name] = phase_slam(name, config, n, (corr, "runsum"), fused)
+        for k, v in runs[name][0].items():
             total[k] += v
+    for k, v in phase_graph_vs_sync_default(runs["slam_default"], 40).items():
+        total[k] += v
     for row in rows:
         row["launches"] = total[row["name"]]
     signal.alarm(0)

@@ -3,7 +3,7 @@
 In a fresh interpreter with `jax`, `yaml`, `cv2` and the JAX package
 blocked, every module of `wild_video_3d_reconstruction_torch` and the
 `chip_smoke` module import, the configs load, and a DPVO builds and tracks
-frames on the CPU. A static scan of the port's sources backs this up for
+frames on the CPU, through the steady step (chunked) and `sync_mode`. A static scan of the port's sources backs this up for
 lazy imports inside functions.
 """
 
@@ -40,6 +40,15 @@ rng = np.random.default_rng(0)
 for t in range(3):
     slam(t, rng.integers(0, 256, (48, 64, 3), dtype=np.uint8),
          [40.0, 40.0, 32.0, 24.0])
+# the steady step (slam.graphs), its chunked dispatch and sync_mode
+steady = cfg.merge_from_dict(dict(MOTION_PROBE_THRESH=-1.0,
+                                  PIPELINE_CHUNK=2))
+for sync in (False, True):
+    slam = DPVO(steady, None, 48, 64, device="cpu", sync_mode=sync)
+    for t in range(13):
+        slam(t, rng.integers(0, 256, (48, 64, 3), dtype=np.uint8),
+             [40.0, 40.0, 32.0, 24.0])
+    assert slam.terminate()[0].shape == (13, 7)
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in {blocked!r} and sys.modules[k])
 print("LOADED", loaded, len(names))

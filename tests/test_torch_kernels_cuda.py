@@ -589,3 +589,70 @@ def test_chol_kernel_not_spd_gives_nan(cuda_device, kind):
     x = tchol.chol_solve_small(S.to(cuda_device),
                                torch.ones(S.shape[0], device=cuda_device))
     assert torch.isnan(x).all()
+
+
+def _replayed(fn):
+    """(eager result, result of a CUDA graph of fn replayed twice, the
+    launches the capture recorded, LAUNCHES before and after the replays):
+    the wrappers' counts come from `_native.captured_launches` and
+    `_native.add_launches`, as the frame step's graphs count them."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(_native.LAUNCHES)
+    with _native.captured_launches() as rec, torch.cuda.graph(graph):
+        out = fn()
+    assert _native.LAUNCHES == before        # capturing launches nothing
+    for _ in range(2):
+        graph.replay()
+        _native.add_launches(rec)
+    torch.cuda.synchronize()
+    return eager, out, rec, before, dict(_native.LAUNCHES)
+
+
+@pytest.mark.parametrize("entry", ["corr_pyramid", "corr_region_fused_x32",
+                                   "corr_region_fused_x16"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_corr_body_replayed_from_a_graph(cuda_device, entry, dtype):
+    """The correlation body (csrc/corr_box.cu) through each entry, captured
+    in a CUDA graph (its shared-memory attributes set once per process,
+    before the capture) and replayed: within 1e-6 of its eager launch, the
+    same spill flags, one launch counted per replay."""
+    g, pyr, c, k, j, v = _to_dev(corr_case(5, spread=12.0), cuda_device,
+                                 dtype)
+    if entry == "corr_pyramid":
+        def fn():
+            return tcorr.corr_lookup(g, pyr, c, k, j, v), None
+    else:
+        def fn():
+            return tregion.region_corr_fused(g, pyr, c, k, j, v, entry[-3:])
+    (e_out, e_spill), (g_out, g_spill), rec, before, after = _replayed(fn)
+    torch.testing.assert_close(g_out, e_out, rtol=0, atol=1e-6)
+    if e_spill is not None:
+        assert torch.equal(g_spill, e_spill) and bool(e_spill.any())
+    assert rec[entry] == 1 and sum(rec.values()) == 1
+    assert after[entry] == before[entry] + 2
+
+
+def test_runsum_replayed_from_a_graph(cuda_device):
+    """The run-sum (csrc/runsum.cu, its second pass a programmatic
+    dependent launch, a programmatic edge in the graph) replayed from a
+    CUDA graph: bitwise its eager launch, every row of a run holding the
+    bitwise same total, one launch counted per replay."""
+    rng = np.random.default_rng(7)
+    E, D = 55296, 768
+    seg = np.repeat(np.arange(E), rng.integers(1, 29, E))[:E]
+    seg[-8000:] = seg[-8001] + 1
+    fes = torch.from_numpy(rng.normal(size=(E, D)).astype(np.float32)).to(
+        cuda_device)
+    seg_t = torch.from_numpy(seg).to(cuda_device, torch.int32)
+    eager, out, rec, before, after = _replayed(
+        lambda: tseg.run_segment_sum_sorted(fes, seg_t))
+    assert torch.equal(out, eager)
+    assert torch.equal(out, out[tseg.run_first_rows(seg_t)])
+    assert rec["runsum"] == 1 and sum(rec.values()) == 1
+    assert after["runsum"] == before["runsum"] + 2

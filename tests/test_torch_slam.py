@@ -146,7 +146,8 @@ def run():
         if t == 8:        # the last warm-up frame before the bootstrap
             snaps["warmup"] = (snapshot(js.state), dataclasses.replace(
                 ts.state, ii=ts.state.ii.clone(), jj=ts.state.jj.clone(),
-                kk=ts.state.kk.clone(), valid=ts.state.valid.clone()))
+                kk=ts.state.kk.clone(), valid=ts.state.valid.clone(),
+                counts=ts.state.counts.clone()))
     jp, jt = js.terminate()
     tp, tt = ts.terminate()
     return dict(jcfg=jcfg, tcfg=tcfg, params=params, js=js, ts=ts,

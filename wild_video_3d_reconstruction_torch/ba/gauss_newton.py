@@ -9,8 +9,10 @@ solve whose failure gives a zero step, the per-iteration depth-step clamp,
 and the retractions with the inference kernel's depth rules.
 
 The pose window [t0, t1) and the first live patch id m_base are host
-integers here (the JAX package traces them), so the retractions slice
-instead of scattering through sentinel rows. `_bundle_adjust_impl` returns
+integers or 0-d tensors on the device (the steady frame step passes them
+so, as the JAX package traces them): the retractions run over the static
+`window` / `patch_slots` extents with masks, dead slots scattered into a
+sentinel row, so no shape depends on them. `_bundle_adjust_impl` returns
 new pose and patch tensors and leaves its inputs as they were.
 """
 
@@ -101,10 +103,16 @@ def _edge_system(poses, patches, intr, target, ii, jj, kk, cfg: BAConfig):
 
 
 def _scatter_rows(values, index, ok, n):
-    """[n, ...] sums of values[e] at index[e] over the rows with ok."""
-    out = values.new_zeros((n + 1,) + tuple(values.shape[1:]))
-    out.index_add_(0, torch.where(ok, index, n), values)
-    return out[:n]
+    """[n, ...] sums of values[e] at index[e] over the rows with ok. On
+    the card they accumulate in fp64: index_add_'s atomics add in the
+    order the threads arrive, which in fp64 no longer shows in the fp32
+    result, so a run repeats (and a replayed graph matches the eager
+    step)."""
+    acc = torch.float64 if values.is_cuda else values.dtype
+    out = torch.zeros((n + 1,) + tuple(values.shape[1:]), dtype=acc,
+                      device=values.device)
+    out.index_add_(0, torch.where(ok, index, n), values.to(acc))
+    return out[:n].to(values.dtype)
 
 
 def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
@@ -205,25 +213,29 @@ def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
     if cfg.depth_step_clamp is not None:
         dZ = dZ.clamp(-cfg.depth_step_clamp, cfg.depth_step_clamp)
 
-    # pose retraction over [t0, t1)
+    # pose retraction over [t0, t1): dead window slots go to a sentinel row
+    # (clamped duplicates would otherwise race with live writes)
     N = poses.shape[0]
-    n_live = max(min(t1 - t0, W_, N - t0), 0)
-    poses = poses.clone()
-    poses[t0:t0 + n_live] = lie.se3_retr(poses[t0:t0 + n_live],
-                                         dX.reshape(W_, 6)[:n_live])
+    slot = torch.arange(W_, device=dev)
+    live = (slot < t1 - t0) & (t0 + slot < N)
+    gidx = torch.where(live, (t0 + slot).clamp(0, N - 1), N)
+    src = poses[gidx.clamp(max=N - 1)]
+    upd = lie.se3_retr(src, dX.reshape(W_, 6))
+    poses = torch.cat([poses, poses.new_zeros(1, 7)]).index_copy_(
+        0, gidx, torch.where(live[:, None], upd, src))[:N]
 
     # depth retraction of the patches that have observations
-    n_sl = max(min(M_, Nk - m_base), 0)
-    rows = slice(m_base, m_base + n_sl)
-    plive = (touched_cnt > 0)[:n_sl]
-    d_old = patches[rows, 2]
-    d_new = d_old[:, 0, 0] + dZ[:n_sl]
+    slots = m_base + torch.arange(M_, device=dev)
+    plive = (touched_cnt > 0) & (slots >= 0) & (slots < Nk)
+    pidx = torch.where(plive, slots.clamp(0, Nk - 1), Nk)
+    d_old = patches[pidx.clamp(max=Nk - 1), 2]
+    d_new = d_old[:, 0, 0] + dZ
     # the inference kernel's rule: d > 20 -> 1.0, floor 1e-4
     d_new = torch.where(d_new > 20.0, 1.0, d_new).clamp(min=1e-4)
-    patches = patches.clone()
-    patches[rows, 2] = torch.where(plive[:, None, None],
-                                   d_new[:, None, None].expand_as(d_old),
-                                   d_old)
+    d_new = torch.where(plive, d_new, d_old[:, 0, 0])
+    patches = torch.cat([patches, patches.new_zeros((1,) + patches.shape[1:])])
+    patches[:, 2].index_copy_(0, pidx, d_new[:, None, None].expand_as(d_old))
+    patches = patches[:Nk]
     return poses, patches
 
 
@@ -234,7 +246,8 @@ def _bundle_adjust_impl(poses, patches, intrinsics, target, weight, lam,
 
     poses [N, 7] (w2c), patches [Nk, 3, P, P], intrinsics [4] shared,
     target / weight [E, 2], ii / jj / kk [E], valid [E]; t0, t1 (the free
-    pose window) and m_base (first live patch id) are host integers.
+    pose window) and m_base (first live patch id) are host integers or 0-d
+    tensors on the device.
     Returns (poses, patches).
     """
     poses = poses.float()

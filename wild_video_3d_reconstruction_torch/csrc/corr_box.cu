@@ -65,8 +65,8 @@
 //     columns, so the two items of an edge fill its row together).
 // Positions divide by the box width with a multiply and a shift (exact
 // for up to 256 positions and widths up to 16). Dynamic shared memory:
-// 43 956 bytes (bf16; 83 124 for fp32), set with cudaFuncSetAttribute;
-// every launch is checked with cudaGetLastError.
+// 43 956 bytes (bf16; 83 124 for fp32), set with cudaFuncSetAttribute once
+// per process; every launch is checked with cudaGetLastError.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -548,13 +548,19 @@ int launch_box(const void* gmap, const void* fmap1, const void* fmap2,
                const void* valid, void* out, void* spill, int spill_rw, int E,
                int H1, int W1, int H2, int W2, cudaStream_t st) {
   constexpr int smem = Stage<T>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      corr_box_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)  // five bf16 blocks per SM need all of its smem
-    err = cudaFuncSetAttribute(corr_box_kernel<T>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // once per process and feature type (a launch inside a CUDA graph
+  // capture then makes no other runtime call)
+  static const cudaError_t attr = [] {
+    cudaError_t err = cudaFuncSetAttribute(
+        corr_box_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Stage<T>::kSmem);
+    if (err == cudaSuccess)  // five bf16 blocks per SM need all of its smem
+      err = cudaFuncSetAttribute(
+          corr_box_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    return err;
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const int grid = (E + kEdgesPerBlock - 1) / kEdgesPerBlock;
   corr_box_kernel<T><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(gmap), static_cast<const T*>(fmap1),

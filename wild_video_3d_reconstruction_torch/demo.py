@@ -47,9 +47,10 @@ def image_frames(imagedir, calib, stride=1, skip=0, end=None):
 
 
 def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
-        path="./output", save_trajectory=False, device="cuda", seed=0):
+        path="./output", save_trajectory=False, device="cuda", seed=0,
+        sync_mode=False):
     """Run VO over the images of `imagedir`; returns (poses c2w [T, 7],
-    tstamps)."""
+    tstamps). sync_mode: the synchronous steady path (`slam.dpvo`)."""
     from .io import export
     from .slam import DPVO
 
@@ -63,7 +64,8 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
                                              end):
         if slam is None:
             ht, wd, _ = image.shape
-            slam = DPVO(cfg, network, ht, wd, seed=seed, device=device)
+            slam = DPVO(cfg, network, ht, wd, seed=seed, device=device,
+                        sync_mode=sync_mode)
         slam(t, image, intrinsics)
 
     slam.refine(12)
@@ -110,6 +112,10 @@ def main(argv=None):
     parser.add_argument("--opts", nargs="+", default=[])
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; cuda unless 'cpu' is asked for")
+    parser.add_argument("--sync_mode", action="store_true",
+                        help="steady frames eagerly with the keyframe "
+                             "decision on the host, instead of the fixed-"
+                             "shape step (CUDA graph replays on the card)")
     args = parser.parse_args(argv)
 
     asked = [k for k in _NOT_PORTED if getattr(args, k)]
@@ -137,7 +143,7 @@ def main(argv=None):
     run(cfg, network, args.imagedir, resource_path(args.calib),
         stride=args.stride, skip=args.skip, end=args.end, path=args.path,
         save_trajectory=args.save_trajectory, device=args.device,
-        seed=args.set_seed)
+        seed=args.set_seed, sync_mode=args.sync_mode)
 
 
 if __name__ == "__main__":

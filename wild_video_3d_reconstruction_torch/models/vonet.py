@@ -5,7 +5,9 @@ DIM=384 context features and 128-channel matching features.
 
   VONet          the two stride-4 encoders and the update operator
   encode_frame   both encoders on one frame -> channel-last maps
-  select_patches random or gradient-biased centres (or the caller's)
+  select_patches random or gradient-biased centres (or the caller's):
+                 `draw_centres` on the host, `top_by_gradient` on the
+                 frame's device
   gather_patches imap / gmap / colour / (x, y, d) patch gathers
 """
 
@@ -71,6 +73,25 @@ def image_gradient_map(image):
     return avg_pool2d(g[..., None], 4)[..., 0]
 
 
+def draw_centres(generator, n, h, w):
+    """n uniform integer centres in [1, w-1) x [1, h-1), float [n, 2]
+    (x, y) on the generator's device (the x draws, then the y draws)."""
+    x = torch.randint(1, w - 1, (n,), generator=generator,
+                      device=generator.device)
+    y = torch.randint(1, h - 1, (n,), generator=generator,
+                      device=generator.device)
+    return torch.stack([x, y], dim=-1).float()
+
+
+def top_by_gradient(cand, M, gradient_map):
+    """The M centres of cand [n, 2] with the largest pooled gradient, in
+    ascending order of it (a stable sort: ties keep their draw order)."""
+    gh, gw = gradient_map.shape
+    x, y = cand[:, 0].long(), cand[:, 1].long()
+    score = gradient_map[y.clamp(0, gh - 1), x.clamp(0, gw - 1)]
+    return cand[torch.argsort(score, stable=True)[-M:]]
+
+
 def select_patches(generator, M, h, w, gradient_map=None, oversample=3,
                    coords=None, device="cpu"):
     """M patch centres on the 1/4-resolution grid, float [M, 2] (x, y).
@@ -84,16 +105,9 @@ def select_patches(generator, M, h, w, gradient_map=None, oversample=3,
         return torch.as_tensor(np.array(coords, dtype=np.float32),
                                device=device)
     n = M if gradient_map is None else oversample * M
-    x = torch.randint(1, w - 1, (n,), generator=generator,
-                      device=generator.device).to(device)
-    y = torch.randint(1, h - 1, (n,), generator=generator,
-                      device=generator.device).to(device)
-    if gradient_map is not None:
-        gh, gw = gradient_map.shape
-        score = gradient_map[y.clamp(0, gh - 1), x.clamp(0, gw - 1)]
-        top = torch.argsort(score, stable=True)[-M:]
-        x, y = x[top], y[top]
-    return torch.stack([x, y], dim=-1).float()
+    cand = draw_centres(generator, n, h, w).to(device)
+    return cand if gradient_map is None else \
+        top_by_gradient(cand, M, gradient_map)
 
 
 def gather_patches(feats: FrameFeatures, image, coords):
@@ -105,7 +119,7 @@ def gather_patches(feats: FrameFeatures, image, coords):
 
     norm = normalize_image(image)
     clr = patchify(norm, RES * (coords + 0.5), 0)[:, :, 0, 0]
-    clr = (clr[:, [2, 1, 0]] + 0.5) * (255.0 / 2)
+    clr = (clr.flip(-1) + 0.5) * (255.0 / 2)          # BGR -> RGB
 
     offs = torch.arange(P, dtype=torch.float32, device=coords.device) - P // 2
     px = (coords[:, None, None, 0] + offs[None, None, :]).expand(M, P, P)

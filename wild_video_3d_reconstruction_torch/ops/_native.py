@@ -10,11 +10,15 @@ versions.
 
 Each kernel wrapper counts its launches in `LAUNCHES` (one per wrapper
 call that launches its kernel), so a run can show which kernels it went
-through.
+through. A CUDA graph replays launches without running the wrappers:
+`captured_launches` records what a capture's wrapper calls counted (and
+takes it back out, since capturing launches nothing), and `add_launches`
+adds that record on each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,6 +63,26 @@ BUILD_INFO = {}
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: yields a dict that receives, on exit,
+    the launches the wrappers counted during the capture; `LAUNCHES` is
+    left as it was before."""
+    before = dict(LAUNCHES)
+    record = {}
+    try:
+        yield record
+    finally:
+        record.update({k: LAUNCHES[k] - v for k, v in before.items()})
+        LAUNCHES.update(before)
+
+
+def add_launches(record):
+    """Count one replay of a graph whose capture recorded `record`."""
+    for k, v in record.items():
+        LAUNCHES[k] += v
 
 
 def _sources():

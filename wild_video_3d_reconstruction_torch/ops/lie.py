@@ -119,7 +119,7 @@ def so3_inv_left_jacobian_coeff(phi):
 
 def se3_identity(batch_shape=(), dtype=torch.float32, device=None):
     data = torch.zeros(tuple(batch_shape) + (7,), dtype=dtype, device=device)
-    data[..., 6] = 1.0
+    data[..., 6].fill_(1.0)     # a kernel (a CUDA graph cannot copy 1.0 in)
     return data
 
 

@@ -53,7 +53,7 @@ def transform(poses, patches, intrinsics, ii, jj, kk, depth=False,
     Gij = relative_poses(poses, ii, jj)
     if tonly:
         ident_q = torch.zeros_like(Gij[:, 3:7])
-        ident_q[:, 3] = 1.0
+        ident_q[:, 3].fill_(1.0)
         Gij = torch.cat([Gij[:, :3], ident_q], dim=-1)
 
     X1 = lie.se3_act4(Gij[:, None, None, :], X0)

@@ -54,9 +54,11 @@ def segment_softmax_weighted_sum(f, g, seg_ids, num_segments, valid=None):
     valid = _valid(valid, E, f.device)
     e = _global_shift(g.float(), valid)
     fe = torch.cat([f.float() * e, e], dim=1)
-    acc = torch.zeros((num_segments, 2 * D), dtype=torch.float32,
-                      device=f.device).index_add_(0, seg_ids.long(), fe)
-    acc_e = acc[seg_ids.long()]
+    # on the card in fp64, so that the order of index_add_'s atomics does
+    # not show in the fp32 sums
+    acc = torch.float64 if f.is_cuda else torch.float32
+    acc_e = torch.zeros((num_segments, 2 * D), dtype=acc, device=f.device) \
+        .index_add_(0, seg_ids.long(), fe.to(acc))[seg_ids.long()].float()
     y = acc_e[:, :D] / torch.clamp(acc_e[:, D:], min=1e-12)
     return torch.where(valid[:, None], y, 0.0).to(f.dtype)
 

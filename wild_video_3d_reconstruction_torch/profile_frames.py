@@ -1,19 +1,29 @@
 """Where a steady-state frame's time goes, on one NVIDIA GPU.
 
     python -m wild_video_3d_reconstruction_torch.profile_frames \
-        [--config configs/default.yaml] [--frames 24] [--out DIR] [--fused]
+        [--config configs/default.yaml] [--frames 40] [--out DIR] [--fused]
+        [--graphs]
 
 Drives DPVO on 384x512 synthetic frames (the drifting texture of
 `chip_smoke.py`, weights drawn from seed 0, the motion gate accepting
-every frame) through warm-up and bootstrap, then measures steady-state
-frames two ways:
+every frame) through warm-up, bootstrap and the first steady frame, then
+measures the steady frames after it in passes:
 
-* stage times: the host clock around each stage of `frame_step`, with a
-  device synchronisation at both ends of the stage (so the stages add up
-  to the frame and include the launch overhead of eager PyTorch);
-* a torch.profiler trace of the same frames without those
-  synchronisations: device time by kernel, and the device's busy share of
-  the traced wall time.
+* untimed by stages: the host clock over the frames with no
+  synchronisation inside (`frame_ms`, `fps`);
+* eager (`sync_mode=True`, the default here) only: stage times, the host
+  clock around each stage of the synchronous step with a device
+  synchronisation at both ends of the stage (so the stages add up to the
+  frame and include the launch overhead of eager PyTorch);
+* a torch.profiler trace of the same kind of frames without those
+  synchronisations: device time by kernel, kernels per frame and the
+  device's busy share of the traced wall time.
+
+With --graphs the steady frames replay CUDA graphs (DPVO's default
+path; the first steady frame captures them) and the untraced pass also
+reports the gap the host leaves on the device between two replays
+(`replay_gap_ms`, CUDA events around each replay: the end of one replay
+to the start of the next, the next frame's input upload included).
 
 Prints one JSON object per config (with the device time of every kernel
 of the port's own `csrc/`, and per source file the device time its kernels
@@ -30,6 +40,7 @@ import contextlib
 import json
 import os
 import re
+import statistics
 import subprocess
 import time
 from collections import defaultdict
@@ -45,7 +56,8 @@ from .utils.config import load_config
 HT, WD = 384, 512
 CSRC = Path(__file__).resolve().parent / "csrc"
 STAGES = ("insert_frame", "append_edges", "update_op", "corr_lookup",
-          "update_forward", "_bundle_adjust_impl", "keyframe_and_log")
+          "update_forward", "_bundle_adjust_impl", "flow_metric",
+          "keyframe_shift", "retire_and_compact")
 
 
 def synthetic_frames(n, seed=0):
@@ -114,41 +126,51 @@ def stage_timers(totals):
             setattr(steps, name, fn)
 
 
-def profile(config, n_frames, out_dir, fused=False):
+def profile(config, n_frames, out_dir, fused=False, graphs=False):
     cfg = load_config(config, MOTION_PROBE_THRESH=0.0, PALLAS_FUSED=fused)
     frames = synthetic_frames(n_frames)
     intr = np.array([320.0, 320.0, WD / 2, HT / 2])
-    slam = DPVO(cfg, None, HT, WD, seed=0, device="cuda")
+    slam = DPVO(cfg, None, HT, WD, seed=0, device="cuda",
+                sync_mode=not graphs)
     t = 0
     while not slam.is_initialized:
         slam(t, frames[t], intr)
         t += 1
+    slam(t, frames[t], intr)          # the first steady frame (captures)
+    t += 1
     steady = frames[t:]
-    half = len(steady) // 2
+    n_pass = len(steady) // (2 if graphs else 3)
     torch.cuda.synchronize()
 
-    # pass 1: synchronised stage times
-    totals = defaultdict(float)
-    with stage_timers(totals):
+    def run(first, count):
         t0 = time.perf_counter()
-        for i, img in enumerate(steady[:half]):
-            slam(t + i, img, intr)
+        for i in range(first, first + count):
+            slam(t + i, steady[i], intr)
         torch.cuda.synchronize()
-        wall1 = time.perf_counter() - t0
-    n1 = half
-    stage_ms = {k: 1e3 * v / n1 for k, v in totals.items()}
-    stage_ms["other"] = 1e3 * wall1 / n1 - sum(stage_ms.values())
+        return time.perf_counter() - t0
+
+    # pass 0: the host clock alone
+    gaps0 = len(slam.runner.gaps_ms()) if graphs else 0
+    wall0 = run(0, n_pass)
+    gaps = slam.runner.gaps_ms()[gaps0:] if graphs else []
+    done = n_pass
+
+    # pass 1 (eager): synchronised stage times
+    stage_ms, wall1 = None, None
+    if not graphs:
+        totals = defaultdict(float)
+        with stage_timers(totals):
+            wall1 = run(done, n_pass)
+        stage_ms = {k: 1e3 * v / n_pass for k, v in totals.items()}
+        stage_ms["other"] = 1e3 * wall1 / n_pass - sum(stage_ms.values())
+        done += n_pass
 
     # pass 2: profiler trace, no synchronisation inside the frames
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    n2 = len(steady) - half
+    n2 = len(steady) - done
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for i, img in enumerate(steady[half:]):
-            slam(t + half + i, img, intr)
-        torch.cuda.synchronize()
-        wall2 = time.perf_counter() - t0
+        wall2 = run(done, n2)
     # device-side events only: the CPU-side aten ops carry the device time
     # of the kernels they launch as well, which would count it twice
     kernels = []
@@ -168,13 +190,19 @@ def profile(config, n_frames, out_dir, fused=False):
             spans[sources[name]].append((ev.time_range.start,
                                          ev.time_range.end))
     frame_ms = 1e3 * wall2 / n2
+    runner = slam.runner
     result = dict(
         config=config, fused=fused, variant=cfg.PALLAS_VARIANT, HxW=[HT, WD],
-        patches=cfg.PATCHES_PER_FRAME,
+        patches=cfg.PATCHES_PER_FRAME, graphs=graphs,
         device=torch.cuda.get_device_name(0),
-        steady_frames_timed=n1, steady_frames_traced=n2,
-        n_edges=slam.state.n_edges,
-        frame_ms_synchronised=1e3 * wall1 / n1, stage_ms=stage_ms,
+        steady_frames_timed=n_pass, steady_frames_traced=n2,
+        n_edges=int(slam.state.n_edges),
+        frame_ms=1e3 * wall0 / n_pass, fps=n_pass / wall0,
+        replay_gap_ms_median=statistics.median(gaps) if gaps else None,
+        replay_gap_ms_mean=statistics.mean(gaps) if gaps else None,
+        replays_per_tier={str(k): v for k, v in runner.replays.items()},
+        frame_ms_synchronised=1e3 * wall1 / n_pass if wall1 else None,
+        stage_ms=stage_ms,
         frame_ms_traced=frame_ms, device_ms_per_frame=device_ms,
         device_busy_share=device_ms / frame_ms if frame_ms else None,
         kernels_per_frame=sum(k[2] for k in kernels),
@@ -188,7 +216,7 @@ def profile(config, n_frames, out_dir, fused=False):
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         name = os.path.splitext(os.path.basename(config))[0] + \
-            ("_fused" if fused else "")
+            ("_fused" if fused else "") + ("_graphs" if graphs else "_sync")
         with open(os.path.join(out_dir, f"profile_{name}.json"), "w") as f:
             json.dump(result, f, indent=1)
     short = {k: v for k, v in result.items() if k != "top_kernels"}
@@ -202,12 +230,15 @@ def main(argv=None):
     parser.add_argument("--config", action="append",
                         help="config file(s); default.yaml and fast.yaml "
                              "when none is given")
-    parser.add_argument("--frames", type=int, default=24)
+    parser.add_argument("--frames", type=int, default=40)
     parser.add_argument("--out", default=None,
                         help="directory for the full JSON (not written "
                              "without it)")
     parser.add_argument("--fused", action="store_true",
                         help="run with PALLAS_FUSED: true")
+    parser.add_argument("--graphs", action="store_true",
+                        help="steady frames through CUDA graph replay "
+                             "(DPVO's default) instead of sync_mode")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frames needs a CUDA card")
@@ -217,7 +248,8 @@ def main(argv=None):
     print(smi.stdout.strip(), flush=True)
     for config in args.config or ["configs/default.yaml",
                                   "configs/fast.yaml"]:
-        profile(config, args.frames, args.out, fused=args.fused)
+        profile(config, args.frames, args.out, fused=args.fused,
+                graphs=args.graphs)
 
 
 if __name__ == "__main__":

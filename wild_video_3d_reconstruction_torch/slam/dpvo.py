@@ -8,10 +8,21 @@ Counterpart of the JAX package's `slam/dpvo.py`:
               factors
   bootstrap   at the WARMUP-th accepted frame: 12 updates over the free
               poses [1, n), then edge retirement
-  steady      one `steps.frame_step` per frame; the host keeps the
-              keyframe bookkeeping (timestamps, the dropped-frame delta
-              chain) as each frame's event comes back
-  terminate   the full trajectory through the delta chain, camera-to-world
+  steady      one `steps.frame_step` per frame through `graphs.StepRunner`
+              (CUDA graph replays on the card, the same step eagerly on
+              the CPU): the keyframe decision is taken on the device and
+              logged in `state.log`; with PIPELINE_CHUNK = K the frames go
+              K at a time
+  terminate   `_replay_log` turns the event log into the host bookkeeping
+              (timestamps, the dropped-frame delta chain), then the full
+              trajectory through the delta chain, camera-to-world
+
+`sync_mode=True` is the JAX package's synchronous path instead of the
+steady one: `steps.track_step` eagerly, then the keyframe decision on the
+host, which reads the flow metric back every frame, then the retirement
+(after the decision, as in the steady step: see `steps.track_step`).
+Warm-up, the motion probe, the bootstrap, `refine` and `terminate` run
+eagerly in both modes.
 
 The warm-up appends factors twice for every accepted frame before the
 WARMUP-th: once for the accepted frame and once more on the pre-
@@ -31,15 +42,16 @@ from ..models.vonet import VONet, init_vonet
 from ..ops import lie
 from ..utils.config import DPVOConfig
 from . import steps
+from .graphs import StepRunner, check_faults
 from .state import WARMUP, SLAMState, init_state
 
 
 # Config values whose behaviour the JAX package has and the port does not
 # yet: (key, its default, the ROADMAP Queue 1 item that ports it).
 # USE_DISTANCE_EDGES is read only by global BA (JAX `slam/global_ba.py:70`),
-# so ENABLE_GLOBAL_BA's check covers it. Keys that change no result
-# (PIPELINE_CHUNK, EDGE_TIERS, PALLAS_CORR, PALLAS_HYBRID_BUDGET) stay
-# accepted.
+# so ENABLE_GLOBAL_BA's check covers it. Keys that change no result stay
+# accepted: PIPELINE_CHUNK and EDGE_TIERS change how the steady frames are
+# dispatched, PALLAS_CORR and PALLAS_HYBRID_BUDGET nothing.
 NOT_PORTED = (("PATCH_SELECTOR", "random", 20),
               ("ENABLE_GLOBAL_BA", False, 11),
               ("loop_enabled", False, 12))
@@ -58,16 +70,18 @@ class DPVO:
     WARMUP = WARMUP
 
     def __init__(self, cfg: DPVOConfig, network=None, ht=480, wd=640,
-                 seed=0, device="cuda"):
+                 seed=0, device="cuda", sync_mode=False):
         """network: a `VONet`, a path to a DPVO `.pth` checkpoint, the JAX
         package's parameter tree (nested dicts of numpy arrays), or None
         for weights drawn from `seed`. device: "cuda" unless the caller
-        asks for the CPU."""
+        asks for the CPU. sync_mode: the synchronous steady path (see the
+        module)."""
         _check_ported(cfg)
         self.cfg = cfg
         self.ht, self.wd = ht, wd
         self.M = cfg.PATCHES_PER_FRAME
         self.device = torch.device(device)
+        self.sync_mode = bool(sync_mode)
         if isinstance(network, VONet):
             net = network
         elif isinstance(network, str):
@@ -80,18 +94,24 @@ class DPVO:
         self.state: SLAMState = init_state(
             cfg, ht, wd, feat_dtype=steps.feat_dtype(cfg), seed=seed,
             device=self.device)
+        self.runner = StepRunner(cfg, self.net, self.state, ht, wd)
 
         self.is_initialized = False
         self.counter = 0          # input frames seen
         self.tlist = []           # input timestamps
-        self.n_host = 0           # accepted keyframes
+        self.n_host = 0           # accepted keyframes (replayed)
         self.parked = []          # input frames parked by the motion probe
         self.tstamps = np.zeros(cfg.BUFFER_SIZE, dtype=np.int64)
         self.delta = {}           # dropped frame -> (anchor frame, dP)
+        self._init_counter = None     # input frames seen at initialization
+        self._events_dispatched = 0   # steady frames handed to the runner
+        self._events_consumed = 0     # event-log rows replayed
+        self._pending = []            # steady rows awaiting a chunk
 
     @property
     def n(self):
-        return self.state.n_frames
+        """Accepted keyframes on the device (a host read)."""
+        return int(self.state.n_frames)
 
     def __call__(self, tstamp, image, intrinsics, coords=None, depths=None):
         """Track one frame. image [H, W, 3] uint8 (BGR), intrinsics [4]
@@ -99,75 +119,146 @@ class DPVO:
         replace the random patch centres and inverse depths of this frame
         (the parity tests feed the JAX run's draws)."""
         cfg = self.cfg
-        if self.n + 1 >= cfg.BUFFER_SIZE:
-            raise RuntimeError("buffer full: increase cfg.BUFFER_SIZE "
-                               "(--buffer)")
         self.tlist.append(tstamp)
         # damped-linear timestamp ratio
         *_, a, b, c = [1] * 3 + self.tlist
         fac = float(c - b) / max(float(b - a), 1e-6)
-        img = torch.as_tensor(np.asarray(image)).to(self.device)
-        intr = torch.as_tensor(np.asarray(intrinsics, dtype=np.float32)) \
-            .to(self.device)
+        intr_np = np.asarray(intrinsics, dtype=np.float32)
+        draws = steps.draw_inputs(cfg, self.state, self.ht, self.wd,
+                                  coords=coords, depths=depths)
 
-        if self.is_initialized:
-            self.state, event = steps.frame_step(
-                cfg, self.net, self.state, img, intr, fac, coords=coords,
-                depths=depths)
+        if self.is_initialized and not self.sync_mode:
+            # steady state: the runner checks the buffer, edge table and
+            # event log against the counters it reads between frames
+            self._pending.append((np.asarray(image), intr_np, fac, *draws))
             self.counter += 1
-            self._record(event)
+            if len(self._pending) >= self.runner.chunk:
+                self._flush_pending()
             return
 
-        self.state = steps.insert_frame(cfg, self.net, self.state, img, intr,
-                                        fac, coords=coords, depths=depths)
+        if self.n + 1 >= cfg.BUFFER_SIZE:
+            raise RuntimeError("buffer full: increase cfg.BUFFER_SIZE "
+                               "(--buffer)")
+        dev = self.device
+        inputs = steps.FrameInputs(
+            torch.as_tensor(np.asarray(image)).to(dev),
+            torch.as_tensor(intr_np).to(dev),
+            torch.tensor(fac, dtype=torch.float32, device=dev),
+            *(d.to(dev) for d in draws))
+        self.runner.invalidate()
+        self.state = steps.insert_frame(cfg, self.net, self.state, inputs,
+                                        initialized=self.is_initialized)
         self.tstamps[self.n_host] = self.counter
         self.counter += 1
 
         thresh = cfg.MOTION_PROBE_THRESH
-        if self.n_host > 0 and thresh >= 0:
+        if self.n_host > 0 and not self.is_initialized and thresh >= 0:
             if float(steps.motion_probe(cfg, self.net, self.state)) < thresh:
                 self.parked.append(self.counter - 1)
                 self.delta[self.counter - 1] = (
                     self.counter - 2, lie.se3_identity(()))
                 return
 
-        # accept the frame and append its factors
-        self.state.n_frames += 1
+        # accept the frame
+        self.state.n_frames.add_(1)
         self.n_host += 1
-        self.state = steps.append_edges(cfg, self.state)
+        if not self.is_initialized:
+            self._check_room()
+            self.state = steps.append_edges(cfg, self.state)
 
-        if self.n_host == self.WARMUP:
+        if self.n_host == self.WARMUP and not self.is_initialized:
             self.is_initialized = True
+            self._init_counter = self.counter
             lam0 = float(cfg.BOOT_LAM0)
             for it in range(12):
                 lam = max(lam0 * (0.35 ** it), 1e-4)
                 self.state = steps.update_op(cfg, self.net, self.state, 1,
                                              lam=lam)
             self.state = steps.retire_and_compact(cfg, self.state)
+        elif self.is_initialized:
+            self._track_sync()
         else:
             # pre-initialization: the second append of the same factors
+            self._check_room()
             self.state = steps.append_edges(cfg, self.state)
 
-    def _record(self, event):
-        """Host bookkeeping of one tracked frame: its timestamp and, on a
-        keyframe eviction, the relative pose of the dropped frame."""
-        removed, dP, _, nan_flag = event
-        n = self.n_host
-        self.tstamps[n] = self.counter - 1
-        n += 1
-        if removed:
-            k = n - self.cfg.KEYFRAME_INDEX
+    def _check_room(self):
+        """Raise unless one more append_edges fits the edge table (a host
+        read: the eager paths only)."""
+        E = self.state.ii.shape[0]
+        A = steps.appended_rows(self.cfg)
+        cur = int(self.state.n_edges)
+        if cur + A > E:
+            raise RuntimeError(f"edge table full ({cur} + {A} rows > {E})")
+
+    def _track_sync(self):
+        """One synchronous tracked frame (the JAX package's `sync_mode`):
+        track_step, then the keyframe decision on the host."""
+        cfg = self.cfg
+        self._check_room()
+        self.state, mm = steps.track_step(cfg, self.net, self.state)
+        if float(mm) / 2.0 < cfg.KEYFRAME_THRESH:
+            k = self.n_host - cfg.KEYFRAME_INDEX
             t0, t1 = int(self.tstamps[k - 1]), int(self.tstamps[k])
-            self.delta[t1] = (t0, dP.float())
-            self.tstamps[k:n - 1] = self.tstamps[k + 1:n].copy()
-            n -= 1
-        if nan_flag:
-            print(f"WARNING: NaN pose detected near input frame "
-                  f"{self.counter - 1}")
+            self.state, dP = steps.keyframe_shift(cfg, self.state)
+            self.delta[t1] = (t0, dP.float().cpu())
+            self.tstamps[k:self.n_host] = \
+                self.tstamps[k + 1:self.n_host + 1].copy()
+            self.n_host -= 1
+        else:
+            pose_k = self.state.poses[self.n_host - cfg.KEYFRAME_INDEX]
+            if bool(torch.isnan(pose_k).any()):
+                raise FloatingPointError("estimated pose is NaN")
+        self.state = steps.retire_and_compact(cfg, self.state)
+
+    def _flush_pending(self):
+        """Dispatch the staged chunk: K frames in one upload when full, a
+        partial tail frame by frame."""
+        rows, self._pending = self._pending, []
+        if rows:
+            self.runner.run(rows)
+            self._events_dispatched += len(rows)
+
+    def _replay_events(self, rows, first_event):
+        """Replay event-log rows [first_event, first_event + len) into the
+        host bookkeeping: timestamps, the eviction delta chain, NaN
+        warnings."""
+        n = self.n_host
+        for e in range(rows.shape[0]):
+            c = self._init_counter + first_event + e
+            self.tstamps[n] = c
+            n += 1
+            removed, dP, nan_flag = rows[e, 0], rows[e, 1:8], rows[e, 9]
+            if removed > 0.5:
+                k = n - self.cfg.KEYFRAME_INDEX
+                t0, t1 = int(self.tstamps[k - 1]), int(self.tstamps[k])
+                self.delta[t1] = (t0, torch.from_numpy(
+                    dP.astype(np.float32)))
+                self.tstamps[k:n - 1] = self.tstamps[k + 1:n].copy()
+                n -= 1
+            if nan_flag > 0.5:
+                print(f"WARNING: NaN pose detected near input frame {c}")
         self.n_host = n
+        self._events_consumed = first_event + rows.shape[0]
+
+    def _replay_log(self):
+        """Bring the host bookkeeping up to the device event log: flush a
+        pending chunk, fetch the rows not replayed yet, replay them. Raises
+        if a steady frame broke the run-sum SoftAgg's segment rule."""
+        if self.sync_mode or self._init_counter is None:
+            return
+        self._flush_pending()
+        self.runner.invalidate()
+        _, _, total, faults = self.runner.counts()
+        check_faults(faults)
+        lo = self._events_consumed
+        if total > lo:
+            self._replay_events(self.state.log[lo:total].cpu().numpy(), lo)
 
     def refine(self, iterations=12):
         """Final refinement updates over the optimization window."""
+        self._flush_pending()
+        self.runner.invalidate()
         for _ in range(iterations):
             t0 = max(self.n - self.cfg.OPTIMIZATION_WINDOW, 1)
             self.state = steps.update_op(self.cfg, self.net, self.state, t0)
@@ -181,6 +272,7 @@ class DPVO:
     def terminate(self):
         """Camera-to-world poses [T, 7] of every input frame (numpy) and
         their timestamps."""
+        self._replay_log()
         poses = self.state.poses[:self.n_host].float().cpu()
         traj = {int(self.tstamps[i]): poses[i] for i in range(self.n_host)}
         out = torch.stack([self.get_pose(traj, t)

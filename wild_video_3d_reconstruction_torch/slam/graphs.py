@@ -1,0 +1,278 @@
+"""The steady-state dispatch: the frame step captured and replayed as CUDA
+graphs on the card, run eagerly on the CPU.
+
+`steps.frame_step` has static shapes for a given edge tier and reads
+nothing back to the host, so on the card `StepRunner` captures it once per
+tier of `steps.edge_tiers` (after one eager warm-up run per tier on a side
+stream, the state restored after it; all tier graphs share one memory
+pool, and they replay one at a time on one stream) and replays the graph
+of each frame's tier. The frame's inputs (image, intrinsics, motion-model
+ratio, patch centres, inverse depths) go through pinned staging buffers
+into static device buffers the graphs read:
+
+  * the host copy of frame t+1 into its pinned buffer waits on the event
+    of the last upload from that buffer (two buffers alternate);
+  * the upload of frame t+1 into the static buffers is queued on the
+    stream after frame t's replay, so it cannot overwrite inputs that
+    replay has not consumed;
+  * between replays the host reads the state's counters (`state.counts`)
+    once, through a pinned buffer and an event: the edge count picks the
+    next frame's tier (the JAX package takes it on the device with
+    `lax.cond`), and the checks below use all four.
+
+With PIPELINE_CHUNK = K > 1 `DPVO` hands K frames at once: they are
+staged into one pinned buffer and uploaded with one copy per input, then
+each replay is preceded by a device copy of its row into the static
+buffers. A shorter list (a partial tail) goes frame by frame.
+
+CUDA events around each replay record the gap the host leaves on the
+device between two replays (`gaps_ms`), read once both are done.
+
+A capture that fails raises; nothing falls back to the eager step. The
+kernel wrappers count launches only when their Python runs, so the
+launches each graph recorded at capture (`_native.captured_launches`) are
+added to the counts on each replay.
+
+On the CPU the same `frame_step` (and `steps.chunk_step`) runs eagerly on
+the same inputs, with the same tier choice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import _native
+from . import steps
+from .state import FAULTS, LOG_IDX, N_EDGES, N_FRAMES, SLAMState
+
+def check_faults(faults):
+    """Raise when steady frames broke the run-sum SoftAgg's segment rule
+    (`steps.update_op`, `state.faults`)."""
+    if faults:
+        raise RuntimeError(
+            f"{faults} steady frames had live edges outside the BA patch "
+            "table: the run-sum SoftAgg does not hold for them")
+
+
+def _state_tensors(state: SLAMState):
+    return [getattr(state, f.name) for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)]
+
+
+class StepRunner:
+    """Runs steady frames of `steps.frame_step` on `state`, in place."""
+
+    def __init__(self, cfg, net, state: SLAMState, ht, wd):
+        self.cfg, self.net, self.state = cfg, net, state
+        self.device = state.poses.device
+        self.graphed = self.device.type == "cuda"
+        self.tiers = steps.edge_tiers(cfg, state.ii.shape[0], self.device)
+        self.chunk = max(int(cfg.PIPELINE_CHUNK), 1)
+        M = cfg.PATCHES_PER_FRAME
+        n_cand = 3 * M if cfg.GRADIENT_BIAS else M
+        self._shapes = steps.FrameInputs(
+            image=((ht, wd, 3), torch.uint8), intrinsics=((4,), torch.float32),
+            fac=((), torch.float32), cand=((n_cand, 2), torch.float32),
+            given=((), torch.bool), depths=((M,), torch.float32))
+        self.graphs = {}            # tier -> CUDAGraph
+        self.graph_launches = {}    # tier -> kernel launches per replay
+        self.replays = {}           # tier -> replays
+        self.host_reads = 0         # counter reads between steady frames
+        self.gaps = []              # ms on the device between two replays
+        # True while the eager warm-up before a capture runs (its effects
+        # on the state are undone): instrumentation that wraps the steps
+        # can skip it
+        self.warming_up = False
+        self.counts_host = None
+        self._counts_ready = None
+        if not self.graphed:
+            return
+        self.inputs = self._alloc(self.device)
+        self._pinned = [self._alloc("cpu", pin=True) for _ in range(2)]
+        self._pinned_k = [self._alloc("cpu", k=self.chunk, pin=True)
+                          for _ in range(2)] if self.chunk > 1 else None
+        self._chunk_dev = self._alloc(self.device, k=self.chunk) \
+            if self.chunk > 1 else None
+        self._uploaded = [None, None]   # events of the last upload per buffer
+        self._slot = 0
+        self._counts_pinned = torch.zeros(4, dtype=torch.long).pin_memory()
+        self.pool = torch.cuda.graph_pool_handle()
+        self._gap = None            # (end of a replay, start of the next)
+        self._last_end = None
+
+    def _alloc(self, device, k=None, pin=False):
+        def one(shape, dtype):
+            shape = shape if k is None else (k,) + shape
+            t = torch.empty(shape, dtype=dtype, device=device)
+            return t.pin_memory() if pin else t
+        return steps.FrameInputs(*(one(*sd) for sd in self._shapes))
+
+    # ------------------------------------------------------------ counters
+    def counts(self):
+        """The state's counters on the host (n_frames, n_edges, log_idx,
+        faults): the copy requested after the last replay, else a fresh
+        read (after eager work on the state)."""
+        if self._counts_ready is not None:
+            self._counts_ready.synchronize()
+            self._counts_ready = None
+            self.host_reads += 1
+            self.counts_host = self._counts_pinned.tolist()
+        elif self.counts_host is None:
+            self.counts_host = self.state.counts.tolist()
+        return self.counts_host
+
+    def invalidate(self):
+        """The state changed outside the runner: read the counters anew."""
+        if self.graphed and self._counts_ready is not None:
+            self._counts_ready.synchronize()
+            self._counts_ready = None
+        self.counts_host = None
+
+    def _request_counts(self):
+        self._counts_pinned.copy_(self.state.counts, non_blocking=True)
+        self._counts_ready = torch.cuda.Event()
+        self._counts_ready.record()
+
+    # --------------------------------------------------------------- frames
+    def run(self, rows):
+        """Track the frames of `rows`, each (image [H, W, 3] uint8 numpy,
+        intrinsics [4], fac, cand, given, depths) as `steps.draw_inputs`
+        and `DPVO` make them."""
+        if not self.graphed:
+            chunk = steps.FrameInputs(*(torch.stack([self._cpu(f, v)
+                                                     for v in col])
+                                        for f, col in zip(self._shapes,
+                                                          zip(*rows))))
+            steps.chunk_step(self.cfg, self.net, self.state, chunk,
+                             self._tier_of)
+            self.counts_host = None
+            return
+        if len(rows) == self.chunk > 1:
+            staged = self._stage(rows)
+            for i in range(len(rows)):
+                for dst, src in zip(self.inputs, staged):
+                    dst.copy_(src[i], non_blocking=True)
+                self._replay()
+        else:
+            for row in rows:
+                self._stage([row])
+                self._replay()
+
+    @staticmethod
+    def _cpu(shape_dtype, v):
+        return torch.as_tensor(v, dtype=shape_dtype[1])
+
+    def _tier_of(self, state):
+        """The eager path's tier: read the counters, check, choose."""
+        self.counts_host = state.counts.tolist()
+        self.host_reads += 1
+        return self._checked_tier()
+
+    def _checked_tier(self):
+        cfg = self.cfg
+        n_frames, n_edges, log_idx, faults = (
+            self.counts()[i] for i in (N_FRAMES, N_EDGES, LOG_IDX, FAULTS))
+        E = self.state.ii.shape[0]
+        need = n_edges + steps.appended_rows(cfg)
+        check_faults(faults)
+        if n_frames + 1 >= cfg.BUFFER_SIZE:
+            raise RuntimeError("buffer full: increase cfg.BUFFER_SIZE "
+                               "(--buffer)")
+        if log_idx >= self.state.log.shape[0]:
+            raise RuntimeError(f"device event log full: increase "
+                               f"cfg.LOG_CAP (= {cfg.LOG_CAP}) above the "
+                               "input frame count")
+        if need > E:
+            raise RuntimeError(f"edge table full ({n_edges} + "
+                               f"{steps.appended_rows(cfg)} rows > {E})")
+        return steps.choose_tier(self.tiers, need)
+
+    def _stage(self, rows):
+        """Host rows -> pinned buffer -> device (the static inputs for one
+        row, the chunk buffer for K). Returns the device buffers."""
+        k = len(rows)
+        slot = self._slot
+        self._slot ^= 1
+        if self._uploaded[slot] is not None:
+            self._uploaded[slot].synchronize()
+        if k == 1:
+            pinned, dev = self._pinned[slot], self.inputs
+            for buf, v in zip(pinned, rows[0]):
+                buf.copy_(torch.as_tensor(v))
+        else:
+            pinned, dev = self._pinned_k[slot], self._chunk_dev
+            for i, row in enumerate(rows):
+                for buf, v in zip(pinned, row):
+                    buf[i].copy_(torch.as_tensor(v))
+        for d, p in zip(dev, pinned):
+            d.copy_(p, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._uploaded[slot] = ev
+        return dev
+
+    def _replay(self):
+        tier = self._checked_tier()     # waits for the last replay
+        if not self.graphs:
+            self.capture()
+        self._take_gap()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graphs[tier].replay()
+        self.replays[tier] = self.replays.get(tier, 0) + 1
+        if self._last_end is not None:
+            self._gap = (self._last_end, start)
+        self._last_end = torch.cuda.Event(enable_timing=True)
+        self._last_end.record()
+        _native.add_launches(self.graph_launches[tier])
+        self._request_counts()
+
+    def _take_gap(self):
+        """Record the gap before the last replay (both its events are done
+        once the counters of that replay were read)."""
+        if self._gap is not None:
+            self.gaps.append(self._gap[0].elapsed_time(self._gap[1]))
+            self._gap = None
+
+    # -------------------------------------------------------------- capture
+    def capture(self):
+        """Capture the frame step once per tier, on the current inputs.
+        The state comes out as it went in."""
+        for tier in self.tiers:
+            self._capture(tier)
+
+    def _capture(self, tier):
+        tensors = _state_tensors(self.state)
+        saved = [t.clone() for t in tensors]
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        self.warming_up = True
+        try:
+            with torch.cuda.stream(side):
+                steps.frame_step(self.cfg, self.net, self.state, self.inputs,
+                                 tier)
+        finally:
+            self.warming_up = False
+        cur.wait_stream(side)
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        with _native.captured_launches() as launches, \
+                torch.cuda.graph(graph, pool=self.pool):
+            steps.frame_step(self.cfg, self.net, self.state, self.inputs,
+                             tier)
+        self.graph_launches[tier] = launches
+        self.graphs[tier] = graph
+
+    def gaps_ms(self):
+        """Device-timeline gaps between consecutive replays (ms): the end of
+        one replay to the start of the next, the upload of the next frame's
+        inputs and the host's work between frames included."""
+        if self._gap is not None:
+            self._gap[1].synchronize()
+            self._take_gap()
+        return list(self.gaps)

@@ -3,10 +3,19 @@
 Counterpart of the JAX package's `slam/state.py`: the same buffers, shapes
 and layouts (channel-last feature maps; imap / gmap flattened over
 (ring slot, patch) so an edge's row is kk % (M * pmem); patch and pose
-buffers indexed by absolute frame id). The counters are host integers:
-the port runs eagerly and the host decides its control flow. The device
-event log of the JAX package is not needed for the same reason: `DPVO`
-keeps its bookkeeping on the host as each frame is tracked.
+buffers indexed by absolute frame id).
+
+The counters live on the state's device, as the JAX package's traced
+scalars do: `counts` [4] int64 holds n_frames, n_edges, log_idx and the
+steady step's fault count, and `n_frames`, `n_edges`, `log_idx`, `faults`
+are 0-d views of it. The steady frame step reads and writes them there,
+so it runs with no host read and replays as a CUDA graph; a caller that
+needs a count on the host reads it explicitly (`int(state.n_edges)`), and
+`DPVO`'s runner copies all four back in one transfer between frames.
+
+`log` [LOG_CAP, 10] fp32 is the JAX package's device event log, one row
+per steady frame: (removed flag, dP [7], flow metric, NaN flag);
+`DPVO._replay_log` turns it into the host bookkeeping at terminate.
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ import torch
 from ..models.vonet import DIM, FDIM, P, RES
 
 WARMUP = 10  # accepted frames before initialization
+LOG_COLS = 10
+N_FRAMES, N_EDGES, LOG_IDX, FAULTS = range(4)
 
 
 def edge_rows(cfg):
@@ -30,6 +41,16 @@ def edge_rows(cfg):
     per_append = (2 * cfg.PATCH_LIFETIME - 1) * cfg.PATCHES_PER_FRAME
     warm = (2 * WARMUP - 1) * per_append
     return max(cfg.edge_capacity, -(-warm // 1024) * 1024)
+
+
+def _count(i):
+    def get(self):
+        return self.counts[i]
+
+    def set_(self, value):
+        self.counts[i] = value
+
+    return property(get, set_)
 
 
 @dataclass
@@ -50,9 +71,16 @@ class SLAMState:
     net: torch.Tensor            # [E, DIM] hidden state
     target: torch.Tensor         # [E, 2] flow targets
     weight: torch.Tensor         # [E, 2] confidences
-    n_frames: int = 0            # accepted keyframes
-    n_edges: int = 0             # used rows of the edge table
-    rng: torch.Generator | None = None   # patch selection / depth init
+    counts: torch.Tensor         # [4] int64 n_frames, n_edges, log_idx, faults
+    log: torch.Tensor            # [LOG_CAP, 10] fp32 event log
+    rng: torch.Generator | None = None   # host draws: patches, depths
+
+    # accepted keyframes / used rows of the edge table / next log row /
+    # steady frames whose update broke the run-sum's segment rule
+    n_frames = _count(N_FRAMES)
+    n_edges = _count(N_EDGES)
+    log_idx = _count(LOG_IDX)
+    faults = _count(FAULTS)
 
 
 def init_state(cfg, ht, wd, feat_dtype=torch.bfloat16, seed=0,
@@ -87,5 +115,7 @@ def init_state(cfg, ht, wd, feat_dtype=torch.bfloat16, seed=0,
         net=z(E, DIM, dtype=feat_dtype),
         target=z(E, 2),
         weight=z(E, 2),
+        counts=z(4, dtype=torch.long),
+        log=z(cfg.LOG_CAP, LOG_COLS),
         rng=torch.Generator().manual_seed(seed),
     )

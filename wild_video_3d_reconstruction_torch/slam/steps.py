@@ -1,6 +1,6 @@
 """Per-frame SLAM steps over the fixed-capacity state.
 
-Counterpart of the JAX package's `slam/steps.py`, run eagerly:
+Counterpart of the JAX package's `slam/steps.py`:
 
   insert_frame        encoders + patch selection + buffer writes + motion
                       model
@@ -11,17 +11,29 @@ Counterpart of the JAX package's `slam/steps.py`, run eagerly:
   flow_metric         keyframe flow magnitude between two frames
   keyframe_shift      keyframe eviction: buffer shift, edge renumbering
   retire_and_compact  age-based edge retirement + stable compaction
-  keyframe_and_log    flow metric -> keyframe decision -> retirement
+  keyframe_and_log    flow metric -> on-device keyframe decision -> event
+                      log row -> retirement
   frame_step          insert + track + keyframe for one steady-state frame
+  chunk_step          frame_step over K staged frames
+  track_step          append + update + flow metric; the host takes the
+                      keyframe decision (`DPVO(sync_mode=True)`)
 
 The state is updated in place (the JAX package threads new arrays; here
-that would copy every buffer each frame). Frame and edge counts are host
-integers, so the edge table is sliced to its used prefix, rounded up to a
-multiple of 512 rows, instead of the JAX package's static prefix tiers:
-rows past `n_edges` are dead and inert in every stage.
+that would copy every buffer each frame, and a CUDA graph replays reads
+and writes at fixed addresses). The counters are device scalars
+(`state.counts`), so `frame_step` reads nothing back to the host: every
+shape in it is static, the keyframe branch is a predicated copy, and it
+replays as a CUDA graph (`slam.graphs`). The O(E) stages run over a
+static prefix of the edge table, a tier of `edge_tiers` (the JAX
+package's `_run_tiered`): `n_rows` names it; the caller picks the
+smallest tier holding the frame's edges (`rows_for`, which reads the edge
+count, or `DPVO` from its one read between frames). Rows past
+`n_edges` are dead and inert in every stage.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,12 +49,20 @@ from ..ops.patchify import avg_pool2d
 from ..ops.segment import compact_valid, neighbors, neighbors_from_sorted
 from .state import SLAMState
 
-# the run-sum kernel serves the kk-SoftAgg when the sliced edge table is a
-# whole number of these rows (the JAX package's `n_rows % 512 == 0`), on
-# the card; tests set RUNSUM_ON_CPU to run the same path through the
-# kernel's plain version
+# the run-sum kernel serves the kk-SoftAgg when the edge prefix is a whole
+# number of these rows (the JAX package's `n_rows % 512 == 0`), on the
+# card; tests set RUNSUM_ON_CPU to run the same path through the kernel's
+# plain version
 RUNSUM_ROWS = 512
 RUNSUM_ON_CPU = False
+
+# edge-prefix tiers (the JAX package's `_run_tiered`): fractions of the
+# config's edge capacity, rounded up to 1024 rows, the last tier the whole
+# table. Tiering engages from TIER_MIN_EDGES rows on, and on the CPU only
+# when a test sets TIER_ON_CPU (as `tests/test_tiering.py` does for JAX).
+TIER_FRACS = {2: (40, 100), 3: (33, 45, 100)}
+TIER_MIN_EDGES = 4096
+TIER_ON_CPU = False
 
 
 def feat_dtype(cfg):
@@ -54,62 +74,143 @@ def _median(x):
     return torch.quantile(x.reshape(-1).float(), 0.5)
 
 
+def _relu(x):
+    """max(x, 0) of a host integer or a device scalar."""
+    return x.clamp(min=0) if torch.is_tensor(x) else max(x, 0)
+
+
+def _div(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _row(a, i):
+    """a[i] for a device scalar i, as a gather (indexing with a 0-d tensor
+    may read it back to the host)."""
+    return a.index_select(0, i.reshape(1))[0]
+
+
+class FrameInputs(NamedTuple):
+    """What one steady frame brings to `frame_step`, on the state's device:
+    image [H, W, 3] uint8, intrinsics [4] fp32 (full resolution), fac 0-d
+    fp32 (the motion model's timestamp ratio), cand [n, 2] fp32 patch
+    centres drawn on the host (n = 3M with GRADIENT_BIAS, else M), given
+    0-d bool (cand[:M] are the caller's centres: no gradient selection),
+    depths [M] fp32 inverse-depth draws."""
+    image: torch.Tensor
+    intrinsics: torch.Tensor
+    fac: torch.Tensor
+    cand: torch.Tensor
+    given: torch.Tensor
+    depths: torch.Tensor
+
+
+def draw_inputs(cfg, state: SLAMState, ht, wd, coords=None, depths=None):
+    """The host draws of one frame from state.rng, as CPU tensors:
+    (cand [n, 2], given, depths [M]). coords [M, 2] / depths [M] given by
+    the caller replace the draws (the parity tests feed the JAX run's)."""
+    M = cfg.PATCHES_PER_FRAME
+    n = 3 * M if cfg.GRADIENT_BIAS else M
+    given = coords is not None
+    if given:
+        cand = torch.zeros(n, 2)
+        cand[:M] = torch.from_numpy(np.array(coords, dtype=np.float32))
+    else:
+        cand = vonet.draw_centres(state.rng, n, ht // RES, wd // RES)
+    if depths is None:
+        d = torch.rand(M, generator=state.rng)
+    else:
+        d = torch.from_numpy(np.array(depths, dtype=np.float32))
+    return cand, torch.tensor(given), d
+
+
+# ---------------------------------------------------------------------------
+# edge-prefix tiers
+# ---------------------------------------------------------------------------
+
+def edge_tiers(cfg, E, device):
+    """The static prefix sizes the O(E) stages run over, ascending; the
+    last is the whole table of E rows."""
+    on_cpu = torch.device(device).type == "cpu"
+    if (on_cpu and not TIER_ON_CPU) or E < TIER_MIN_EDGES or \
+            cfg.EDGE_TIERS <= 1:
+        return (E,)
+    fracs = TIER_FRACS.get(cfg.EDGE_TIERS, (40, 100))
+    cap = cfg.edge_capacity
+    return tuple(sorted({E if f >= 100 else
+                         min((cap * f // 100 + 1023) // 1024 * 1024, E)
+                         for f in fracs}))
+
+
+def choose_tier(tiers, n_edges):
+    """The smallest tier holding n_edges rows (the JAX package's cond
+    `n_edges <= t`)."""
+    return next((t for t in tiers if n_edges <= t), tiers[-1])
+
+
+def rows_for(cfg, state: SLAMState):
+    """The tier of the state's current edge count, read on the host: for
+    the eager callers (warm-up, bootstrap, `sync_mode`, tests)."""
+    tiers = edge_tiers(cfg, state.ii.shape[0], state.ii.device)
+    return choose_tier(tiers, int(state.n_edges))
+
+
+def appended_rows(cfg):
+    """Rows one `append_edges` adds: (r - 1) M forward + r M backward."""
+    return (2 * cfg.PATCH_LIFETIME - 1) * cfg.PATCHES_PER_FRAME
+
+
 # ---------------------------------------------------------------------------
 # frame insertion
 # ---------------------------------------------------------------------------
 
-def insert_frame(cfg, net, state: SLAMState, image, intrinsics, fac,
-                 initialized=False, coords=None, depths=None):
-    """Insert the frame at slot n = state.n_frames (not yet accepted).
-
-    image [H, W, 3] uint8 and intrinsics [4] (full resolution) on the
-    state's device; fac is the motion model's timestamp ratio. coords
-    [M, 2] and depths [M] given by the caller replace the random patch
-    centres and inverse depths (drawn from state.rng otherwise).
-    """
+def insert_frame(cfg, net, state: SLAMState, inputs: FrameInputs,
+                 initialized=False):
+    """Insert the frame at slot n = state.n_frames (not yet accepted)."""
     M = cfg.PATCHES_PER_FRAME
     n = state.n_frames
     dev = state.poses.device
     fd = feat_dtype(cfg)
+    image = inputs.image
 
     feats = vonet.encode_frame(net, image, fd)
-    h4, w4 = feats.fmap.shape[0], feats.fmap.shape[1]
-    gbias = vonet.image_gradient_map(image) if cfg.GRADIENT_BIAS else None
-    coords = vonet.select_patches(state.rng, M, h4, w4, gradient_map=gbias,
-                                  coords=coords, device=dev)
+    coords = inputs.cand
+    if cfg.GRADIENT_BIAS:
+        top = vonet.top_by_gradient(inputs.cand, M,
+                                    vonet.image_gradient_map(image))
+        coords = torch.where(inputs.given, inputs.cand[:M], top)
     imap_p, gmap_p, clr, patches = vonet.gather_patches(feats, image, coords)
 
-    # patch inverse-depth initialization: uniform random per patch, or the
-    # median of the last 3 frames' depths ("median")
-    if depths is not None:
-        d0 = torch.as_tensor(np.array(depths, dtype=np.float32), device=dev)
-    elif initialized and cfg.DEPTH_INIT == "median":
-        lo = max(n - 3, 0) * M
-        d0 = _median(state.patches[lo:lo + 3 * M, 2]).expand(M)
-    else:
-        d0 = torch.rand(M, generator=state.rng).to(dev)
+    # patch inverse-depth initialization: the frame's draws, or the median
+    # of the last 3 frames' depths ("median")
+    d0 = inputs.depths
+    if initialized and cfg.DEPTH_INIT == "median":
+        rows = _relu(n - 3) * M + torch.arange(3 * M, device=dev)
+        d0 = _median(state.patches[rows, 2]).expand(M)
     patches[:, 2] = d0[:, None, None]
 
     # damped-linear motion extrapolation
-    if n > 1:
-        P1, P2 = state.poses[n - 1], state.poses[n - 2]
-        xi = cfg.MOTION_DAMPING * fac * lie.se3_log(
-            lie.se3_mul(P1, lie.se3_inv(P2)))
-        state.poses[n] = lie.se3_mul(lie.se3_exp(xi), P1)
-    elif n > 0:
-        state.poses[n] = state.poses[n - 1]
+    P1 = _row(state.poses, _relu(n - 1))
+    P2 = _row(state.poses, _relu(n - 2))
+    xi = cfg.MOTION_DAMPING * inputs.fac * lie.se3_log(
+        lie.se3_mul(P1, lie.se3_inv(P2)))
+    pred = lie.se3_mul(lie.se3_exp(xi), P1)
+    new_pose = torch.where(n > 1, pred,
+                           torch.where(n > 0, P1, _row(state.poses, n)))
 
-    slot = n % cfg.pmem
-    rows = slice(n * M, (n + 1) * M)
-    srows = slice(slot * M, (slot + 1) * M)
-    state.patches[rows] = patches
-    state.patches_est[rows] = 0.0
-    state.intrinsics[n] = intrinsics.float() / RES
-    state.colors[n] = clr.clamp(0, 255).to(torch.uint8)
-    state.imap[srows] = imap_p.to(fd)
-    state.gmap[srows] = gmap_p.to(fd)
-    state.fmap1[slot] = feats.fmap.to(fd)
-    state.fmap2[slot] = avg_pool2d(feats.fmap, 4).to(fd)
+    n1 = n.reshape(1)
+    rows = n * M + torch.arange(M, device=dev)
+    slot = n1 % cfg.pmem
+    srows = slot * M + torch.arange(M, device=dev)
+    state.poses.index_copy_(0, n1, new_pose[None])
+    state.patches.index_copy_(0, rows, patches)
+    state.patches_est.index_fill_(0, rows, 0.0)
+    state.intrinsics.index_copy_(0, n1,
+                                 (inputs.intrinsics.float() / RES)[None])
+    state.colors.index_copy_(0, n1, clr.clamp(0, 255).to(torch.uint8)[None])
+    state.imap.index_copy_(0, srows, imap_p.to(fd))
+    state.gmap.index_copy_(0, srows, gmap_p.to(fd))
+    state.fmap1.index_copy_(0, slot, feats.fmap.to(fd)[None])
+    state.fmap2.index_copy_(0, slot, avg_pool2d(feats.fmap, 4).to(fd)[None])
     return state
 
 
@@ -120,7 +221,8 @@ def insert_frame(cfg, net, state: SLAMState, image, intrinsics, fac,
 def _run_update_net(cfg, net, state: SLAMState, net_e, ii, jj, kk, valid, n,
                     nbr=None, agg_order=None):
     """reproject -> correlate -> update operator; returns
-    (net', delta, weight, coords)."""
+    (net', delta, weight, coords). n: the frame count, a host integer or
+    a device scalar."""
     M = cfg.PATCHES_PER_FRAME
     pmem = cfg.pmem
     fd = feat_dtype(cfg)
@@ -134,9 +236,10 @@ def _run_update_net(cfg, net, state: SLAMState, net_e, ii, jj, kk, valid, n,
                        fused=cfg.PALLAS_FUSED, variant=cfg.PALLAS_VARIANT)
     ctx = state.imap[kk_slot]
 
-    # bounded segment ids of the SoftAgg groups
+    # bounded segment ids of the SoftAgg groups, from the device frame
+    # base fb
     FW = cfg.frame_window
-    fb = max(n - (FW - 1), 0)
+    fb = _relu(n - (FW - 1))
     kk_seg = (kk - fb * M).clamp(0, cfg.patch_slots)
     kk_seg = torch.where(valid, kk_seg, cfg.patch_slots)
     li = (ii - fb).clamp(0, FW)
@@ -160,8 +263,8 @@ def motion_probe(cfg, net, state: SLAMState):
     n = state.n_frames
     dev = state.poses.device
     kk = n * M - M + torch.arange(M, device=dev)
-    jj = torch.full((M,), n, device=dev)
-    ii = kk // M
+    jj = torch.zeros(M, dtype=torch.long, device=dev) + n
+    ii = _div(kk, M)
     valid = torch.ones(M, dtype=torch.bool, device=dev)
     net_e = torch.zeros((M, DIM), dtype=feat_dtype(cfg), device=dev)
     _, delta, _, _ = _run_update_net(cfg, net, state, net_e, ii, jj, kk,
@@ -175,8 +278,9 @@ def motion_probe(cfg, net, state: SLAMState):
 
 def append_edges(cfg, state: SLAMState):
     """Append forward + backward factors for the newly accepted frame
-    c = n_frames - 1: patches of frames [n-r, c) -> c, and patches of c ->
-    frames [n-r, n)."""
+    c = n_frames - 1 at row n_edges: patches of frames [n-r, c) -> c, and
+    patches of c -> frames [n-r, n). The caller makes sure the rows fit
+    (`DPVO` checks before every append)."""
     M = cfg.PATCHES_PER_FRAME
     r = cfg.PATCH_LIFETIME
     n = state.n_frames
@@ -185,73 +289,75 @@ def append_edges(cfg, state: SLAMState):
 
     A_f = (r - 1) * M
     kk_f = M * c - A_f + torch.arange(A_f, device=dev)
-    ii_f = torch.div(kk_f, M, rounding_mode="floor")
-    jj_f = torch.full((A_f,), c, device=dev)
-    ok_f = (kk_f >= M * max(n - r, 0)) & (kk_f >= 0)
+    ii_f = _div(kk_f, M)
+    jj_f = torch.zeros(A_f, dtype=torch.long, device=dev) + c
+    ok_f = (kk_f >= M * _relu(n - r)) & (kk_f >= 0)
 
     tvals = n - r + torch.arange(r, device=dev)
     kk_b = (M * c + torch.arange(M, device=dev))[:, None].expand(M, r)
     kk_b = kk_b.reshape(-1)
     jj_b = tvals[None, :].expand(M, r).reshape(-1)
-    ii_b = torch.div(kk_b, M, rounding_mode="floor")
+    ii_b = _div(kk_b, M)
     ok_b = jj_b >= 0
 
     A = A_f + M * r
-    cur = state.n_edges
-    if cur + A > state.ii.shape[0]:
-        raise RuntimeError(f"edge table full ({cur} + {A} rows > "
-                           f"{state.ii.shape[0]})")
-    rows = slice(cur, cur + A)
-    state.ii[rows] = torch.cat([ii_f, ii_b]).clamp(min=0)
-    state.jj[rows] = torch.cat([jj_f, jj_b]).clamp(min=0)
-    state.kk[rows] = torch.cat([kk_f, kk_b]).clamp(min=0)
-    state.valid[rows] = torch.cat([ok_f, ok_b])
-    state.net[rows] = 0
-    state.target[rows] = 0.0
-    state.weight[rows] = 0.0
-    state.n_edges = cur + A
+    rows = state.n_edges + torch.arange(A, device=dev)
+    state.ii.index_copy_(0, rows, torch.cat([ii_f, ii_b]).clamp(min=0))
+    state.jj.index_copy_(0, rows, torch.cat([jj_f, jj_b]).clamp(min=0))
+    state.kk.index_copy_(0, rows, torch.cat([kk_f, kk_b]).clamp(min=0))
+    state.valid.index_copy_(0, rows, torch.cat([ok_f, ok_b]))
+    state.net.index_fill_(0, rows, 0)
+    state.target.index_fill_(0, rows, 0.0)
+    state.weight.index_fill_(0, rows, 0.0)
+    state.n_edges.add_(A)
     return state
 
 
-def retire_and_compact(cfg, state: SLAMState):
+def retire_and_compact(cfg, state: SLAMState, n_rows=None):
     """Drop edges whose source left the removal window, then stable-
-    compact the used prefix of the table."""
+    compact the first n_rows rows of the table (a tier holding every live
+    edge; read from the edge count when not given)."""
     M = cfg.PATCHES_PER_FRAME
-    n = state.n_frames
-    ne = state.n_edges
-    sl = slice(0, ne)
-    keep = state.valid[sl] & (torch.div(state.kk[sl], M, rounding_mode="floor")
-                              >= n - cfg.REMOVAL_WINDOW)
+    n_rows = rows_for(cfg, state) if n_rows is None else n_rows
+    sl = slice(0, n_rows)
+    keep = state.valid[sl] & (_div(state.kk[sl], M)
+                              >= state.n_frames - cfg.REMOVAL_WINDOW)
     perm, n_valid = compact_valid(keep)
     for name in ("ii", "jj", "kk", "net", "target", "weight"):
         a = getattr(state, name)
         a[sl] = a[sl][perm]
     state.valid[sl] = keep[perm]
-    state.n_edges = int(n_valid)
+    state.n_edges.copy_(n_valid)
     return state
-
-
-def _rows_used(state):
-    """Rows of the edge table an update runs over: n_edges rounded up to
-    a multiple of RUNSUM_ROWS, within the capacity."""
-    E = state.ii.shape[0]
-    return min(-(-state.n_edges // RUNSUM_ROWS) * RUNSUM_ROWS, E)
 
 
 # ---------------------------------------------------------------------------
 # the optimization inner loop
 # ---------------------------------------------------------------------------
 
-def update_op(cfg, net, state: SLAMState, t0, lam=None):
+def update_op(cfg, net, state: SLAMState, t0, lam=None, n_rows=None,
+              device_gate=False):
     """One update: network + 2 Gauss-Newton iterations over the free
-    poses [t0, n). lam overrides the depth damping (default 1e-4)."""
+    poses [t0, n) and the first n_rows rows of the edge table (read from
+    the edge count when not given). t0: host integer or device scalar;
+    lam overrides the depth damping (default 1e-4).
+
+    The run-sum SoftAgg (on the card) needs every live edge to be a member
+    of the BA patch table (ROADMAP R5). The eager callers test that on the
+    host and take the one-hot / scatter forms where it fails (the
+    bootstrap, while it spans more frames than the patch window); with
+    device_gate (the steady step, where it always holds after a
+    retirement: the live patches are those of frames >= n - 1 -
+    REMOVAL_WINDOW, all in the patch window) the run-sum is taken and a
+    failure only counts into state.faults, which `DPVO` turns into an
+    error."""
     M = cfg.PATCHES_PER_FRAME
     n = state.n_frames
-    m_base = max(n - (cfg.patch_window_frames - 1), 0) * M
+    m_base = _relu(n - (cfg.patch_window_frames - 1)) * M
     ba_cfg = BAConfig(window=cfg.ba_window, patch_slots=cfg.patch_slots,
                       iterations=2, per_patch_cap=2 * cfg.PATCH_LIFETIME + 2,
                       depth_step_clamp=cfg.DEPTH_STEP_CLAMP or None)
-    n_rows = _rows_used(state)
+    n_rows = rows_for(cfg, state) if n_rows is None else n_rows
     sl = slice(0, n_rows)
     ii, jj, kk, valid = state.ii[sl], state.jj[sl], state.kk[sl], \
         state.valid[sl]
@@ -269,14 +375,15 @@ def update_op(cfg, net, state: SLAMState, t0, lam=None):
     nbr = neighbors_from_sorted(order, key[order], valid[order],
                                 cfg.patch_slots)
     # the same sort serves the kk-SoftAgg as run-sums when every live edge
-    # is a table member: only then are a patch's live rows one run under
-    # it. (Not so while the bootstrap spans more frames than the patch
-    # window, where the SoftAgg ids clamp the older patches into segment
-    # 0; the one-hot / scatter forms then keep the exact sums.)
+    # is a table member: only then are a patch's live rows one run under it
     agg_order = None
-    if n_rows % RUNSUM_ROWS == 0 and (kk.is_cuda or RUNSUM_ON_CPU) and \
-            not bool((valid & ~okp).any()):
-        agg_order = order
+    if n_rows % RUNSUM_ROWS == 0 and (kk.is_cuda or RUNSUM_ON_CPU):
+        outside = (valid & ~okp).any()
+        if device_gate:
+            agg_order = order
+            state.faults.add_(outside.long())
+        elif not bool(outside):
+            agg_order = order
 
     net2, delta, weight, coords = _run_update_net(
         cfg, net, state, state.net[sl], ii, jj, kk, valid, n, nbr=nbr,
@@ -287,36 +394,34 @@ def update_op(cfg, net, state: SLAMState, t0, lam=None):
         state.poses, state.patches, state.intrinsics[0], target, weight,
         1e-4 if lam is None else lam, ii, jj, kk, valid, t0, n, m_base,
         ba_cfg, patches_est=state.patches_est, patch_table=table)
-    state.net[sl] = net2.to(state.net.dtype)
+    state.net[sl] = net2
     state.target[sl] = target
     state.weight[sl] = weight
-    state.poses = poses
-    state.patches = patches
+    state.poses.copy_(poses)
+    state.patches.copy_(patches)
     return state
 
 
-def flow_metric(cfg, state: SLAMState, i, j):
+def flow_metric(cfg, state: SLAMState, i, j, n_rows=None):
     """Bidirectional mean flow magnitude between frames i and j over the
     live edges connecting them (beta = 0.5), reprojected on a compacted
     buffer of at most 4M edges. Returns a 0-d tensor."""
     M = cfg.PATCHES_PER_FRAME
     B = 4 * M
-    ne = state.n_edges
+    n_rows = rows_for(cfg, state) if n_rows is None else n_rows
     dev = state.ii.device
-    if ne == 0:
-        return torch.zeros((), device=dev)
-    sl = slice(0, ne)
+    sl = slice(0, n_rows)
     ii, jj, valid = state.ii[sl], state.jj[sl], state.valid[sl]
     m_fwd = (ii == i) & (jj == j) & valid
     m_rev = (ii == j) & (jj == i) & valid
     m = m_fwd | m_rev
     r = torch.cumsum(m.long(), 0) - 1
     pos = torch.where(m & (r < B), r, B)
-    buf = torch.full((B + 1,), ne, dtype=torch.long, device=dev)
-    buf[pos] = torch.arange(ne, device=dev)
+    buf = torch.full((B + 1,), n_rows, dtype=torch.long, device=dev)
+    buf[pos] = torch.arange(n_rows, device=dev)
     buf = buf[:B]
-    ok = buf < ne
-    bc = buf.clamp(0, ne - 1)
+    ok = buf < n_rows
+    bc = buf.clamp(0, n_rows - 1)
     fm = pops.flow_mag(state.poses, state.patches, state.intrinsics,
                        ii[bc], jj[bc], state.kk[sl][bc],
                        beta=0.5).mean(dim=(1, 2))
@@ -332,32 +437,51 @@ def flow_metric(cfg, state: SLAMState, i, j):
 # keyframe eviction
 # ---------------------------------------------------------------------------
 
-def keyframe_shift(cfg, state: SLAMState):
+def keyframe_shift(cfg, state: SLAMState, remove=None, n_rows=None):
     """Evict keyframe k = n - KEYFRAME_INDEX: drop its edges, renumber the
     newer ones, shift the KEYFRAME_INDEX - 1 newest frames one slot down.
-    Returns (state, dP) with dP = pose_k * pose_{k-1}^-1."""
+    Returns (state, dP) with dP = pose_k * pose_{k-1}^-1.
+
+    remove: a 0-d device bool that predicates every write (the on-device
+    keyframe decision: both outcomes run the same fixed sequence of
+    copies, a kept frame's copies writing each slab onto itself), or None
+    to evict. The edge edits cover the first n_rows rows (read from the
+    edge count when not given)."""
     M = cfg.PATCHES_PER_FRAME
     pmem = cfg.pmem
     KI = cfg.KEYFRAME_INDEX
     n = state.n_frames
     k = n - KI
+    dev = state.poses.device
+    n_rows = rows_for(cfg, state) if n_rows is None else n_rows
+    rem = torch.ones((), dtype=torch.bool, device=dev) if remove is None \
+        else remove
 
-    dP = lie.se3_mul(state.poses[k], lie.se3_inv(state.poses[k - 1]))
+    dP = lie.se3_mul(_row(state.poses, k),
+                     lie.se3_inv(_row(state.poses, k - 1)))
 
-    newer = state.ii > k
-    state.valid &= ~((state.ii == k) | (state.jj == k))
-    state.kk = torch.where(newer, state.kk - M, state.kk)
-    state.ii = torch.where(newer, state.ii - 1, state.ii)
-    state.jj = torch.where(state.jj > k, state.jj - 1, state.jj)
+    sl = slice(0, n_rows)
+    ii, jj = state.ii[sl], state.jj[sl]
+    newer = (ii > k) & rem
+    state.valid[sl] &= ~(((ii == k) | (jj == k)) & rem)
+    state.kk[sl] = torch.where(newer, state.kk[sl] - M, state.kk[sl])
+    state.jj[sl] = torch.where((jj > k) & rem, jj - 1, jj)
+    state.ii[sl] = torch.where(newer, ii - 1, ii)
+
+    def move(a, src, dst):
+        # a[dst] = a[src] when removing, else a[src] = a[src]; the gather
+        # materializes before the (possibly overlapping) write
+        a.index_copy_(0, torch.where(rem, dst, src), a[src])
 
     def shift_rows(a, pf):
-        a[k * pf:(k + KI - 1) * pf] = a[(k + 1) * pf:(k + KI) * pf].clone()
+        span = torch.arange((KI - 1) * pf, device=dev)
+        move(a, (k + 1) * pf + span, k * pf + span)
 
     def shift_ring(a, ps):
+        span = torch.arange(ps, device=dev)
         for i in range(KI - 1):
-            src = (k + i + 1) % pmem
-            dst = (k + i) % pmem
-            a[dst * ps:(dst + 1) * ps] = a[src * ps:(src + 1) * ps]
+            move(a, ((k + i + 1) % pmem) * ps + span,
+                 ((k + i) % pmem) * ps + span)
 
     shift_rows(state.poses, 1)
     shift_rows(state.patches, M)
@@ -368,40 +492,68 @@ def keyframe_shift(cfg, state: SLAMState):
     shift_ring(state.gmap, M)
     shift_ring(state.fmap1, 1)
     shift_ring(state.fmap2, 1)
-    state.n_frames = n - 1
+    state.n_frames.sub_(rem.long())
     return state, dP
 
 
-def keyframe_and_log(cfg, state: SLAMState):
-    """Flow metric -> keyframe decision -> retirement. Returns (state,
-    event) with event = (removed, dP [7], flow metric, nan_flag), the
-    record `DPVO` keeps for the trajectory's delta chain."""
+def keyframe_and_log(cfg, state: SLAMState, n_rows=None):
+    """Flow metric -> on-device keyframe decision -> event-log row at
+    log_idx (removed flag, dP [7], flow metric, NaN flag) -> retirement,
+    all over the first n_rows rows of the edge table."""
+    KI = cfg.KEYFRAME_INDEX
+    n_rows = rows_for(cfg, state) if n_rows is None else n_rows
     n = state.n_frames
-    mm = float(flow_metric(cfg, state, n - cfg.KEYFRAME_INDEX - 1,
-                           n - cfg.KEYFRAME_INDEX + 1))
-    removed = mm / 2.0 < cfg.KEYFRAME_THRESH
-    if removed:
-        state, dP = keyframe_shift(cfg, state)
-    else:
-        dP = lie.se3_identity((), device=state.poses.device)
-    k = max(state.n_frames - cfg.KEYFRAME_INDEX, 0)
-    nan_flag = bool(torch.isnan(state.poses[k]).any())
-    state = retire_and_compact(cfg, state)
-    return state, (removed, dP.cpu(), mm, nan_flag)
+    mm = flow_metric(cfg, state, n - KI - 1, n - KI + 1, n_rows)
+    remove = (mm / 2.0) < cfg.KEYFRAME_THRESH
+    state, dP = keyframe_shift(cfg, state, remove=remove, n_rows=n_rows)
+    dP = torch.where(remove, dP, lie.se3_identity((), device=dP.device))
+    nan_flag = torch.isnan(_row(state.poses, _relu(state.n_frames - KI))).any()
+    entry = torch.cat([remove.float()[None], dP, mm.float()[None],
+                       nan_flag.float()[None]])
+    state.log.index_copy_(0, state.log_idx.reshape(1), entry[None])
+    state.log_idx.add_(1)
+    return retire_and_compact(cfg, state, n_rows)
 
 
-def track_and_keyframe(cfg, net, state: SLAMState):
+def track_and_keyframe(cfg, net, state: SLAMState, n_rows):
     state = append_edges(cfg, state)
-    t0 = max(state.n_frames - cfg.OPTIMIZATION_WINDOW, 1)
-    state = update_op(cfg, net, state, t0)
-    return keyframe_and_log(cfg, state)
+    t0 = (state.n_frames - cfg.OPTIMIZATION_WINDOW).clamp(min=1)
+    state = update_op(cfg, net, state, t0, n_rows=n_rows, device_gate=True)
+    return keyframe_and_log(cfg, state, n_rows)
 
 
-def frame_step(cfg, net, state: SLAMState, image, intrinsics, fac,
-               coords=None, depths=None):
-    """insert + track + keyframe for one steady-state frame; returns
-    (state, event) as `keyframe_and_log`."""
-    state = insert_frame(cfg, net, state, image, intrinsics, fac,
-                         initialized=True, coords=coords, depths=depths)
-    state.n_frames += 1
-    return track_and_keyframe(cfg, net, state)
+def frame_step(cfg, net, state: SLAMState, inputs: FrameInputs, n_rows):
+    """insert + track + keyframe for one steady-state frame, with no host
+    read: n_rows is the tier holding the edge count after this frame's
+    append."""
+    state = insert_frame(cfg, net, state, inputs, initialized=True)
+    state.n_frames.add_(1)
+    return track_and_keyframe(cfg, net, state, n_rows)
+
+
+def chunk_step(cfg, net, state: SLAMState, chunk, tier_of):
+    """`frame_step` over the frames of `chunk` (FrameInputs with a leading
+    K axis) in order; tier_of(state) gives each frame's tier."""
+    for inputs in zip(*chunk):
+        state = frame_step(cfg, net, state, FrameInputs(*inputs),
+                           tier_of(state))
+    return state
+
+
+def track_step(cfg, net, state: SLAMState):
+    """append factors -> update -> keyframe flow metric, eagerly; returns
+    (state, flow metric). The host compares the metric with
+    KEYFRAME_THRESH, calls `keyframe_shift` on a drop, then
+    `retire_and_compact` (`DPVO(sync_mode=True)`). The JAX package's
+    track_step retires before the decision and its keyframe_shift again
+    after it; retiring once, after the decision, as `keyframe_and_log`
+    does, keeps the steady step's edges (the JAX order retires the edges
+    of frame n - 1 - REMOVAL_WINDOW one frame earlier on a drop)."""
+    state = append_edges(cfg, state)
+    n_rows = rows_for(cfg, state)
+    n = state.n_frames
+    t0 = max(int(n) - cfg.OPTIMIZATION_WINDOW, 1)
+    state = update_op(cfg, net, state, t0, n_rows=n_rows)
+    mm = flow_metric(cfg, state, n - cfg.KEYFRAME_INDEX - 1,
+                     n - cfg.KEYFRAME_INDEX + 1, n_rows)
+    return state, mm

@@ -14,17 +14,30 @@ synthetic frames with weights drawn from a seed; the steady loop after the
 first graph replay runs under `torch.cuda.set_sync_debug_mode("error")`.
 It checks small runs on the card through graph replay (unfused, fused x32,
 fused x16) against the same runs on the CPU and through `sync_mode` on the
-card, and the default.yaml graph run against two `sync_mode` runs. The
-kernel counts include the launches of every graph replay. Each VO run also
-reports the share of its correlation edge-levels that took the per-pixel
-path. Each phase prints one JSON line; the kernel summary and then the
-result line come last. Any failure exits non-zero without the result line;
-so does a machine without CUDA.
+card, and the default.yaml graph run against two `sync_mode` runs.
+
+Then the trained weights (`weights/vonet_synth_tpu_r3_step2000.pth`):
+they load on the card (`weights`: size, parameters, checksum); the
+wild-video path at full width (`slam_default_wild`: default.yaml at
+384x512 on the rendered world of `eval/synth_ate.py:wild_sequence` with
+its metric depth as the prior and a moving occluder's mask on every
+frame, replayed and in `sync_mode`, poses bitwise equal, the Sim(3) ATE
+against the ground truth); fast.yaml with keypoint patches on the same
+images (`slam_fast_keypoints`); and `eval/synth_ate.run`'s protocol on
+the card and on the CPU (`synth_ate_tiny`: each ATE below the identity
+floor, the two within TOL_ATE_CARD_CPU of the floor).
+
+The kernel counts include the launches of every graph replay. Each VO run
+also reports the share of its correlation edge-levels that took the
+per-pixel path. Each phase prints one JSON line; the kernel summary and
+then the result line come last. Any failure exits non-zero without the
+result line; so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import json
 import os
 import signal
@@ -37,7 +50,10 @@ import time
 import numpy as np
 import torch
 
+from wild_video_3d_reconstruction_torch.eval import synth_ate
 from wild_video_3d_reconstruction_torch.io import export
+from wild_video_3d_reconstruction_torch.models.convert import \
+    load_reference_checkpoint
 from wild_video_3d_reconstruction_torch.ops import _native
 from wild_video_3d_reconstruction_torch.ops import chol as tchol
 from wild_video_3d_reconstruction_torch.ops import corr_region as tregion
@@ -46,6 +62,7 @@ from wild_video_3d_reconstruction_torch.ops.corr import (
 from wild_video_3d_reconstruction_torch.ops.segment import (
     run_first_rows, run_segment_sum_sorted, run_segment_sum_sorted_plain)
 from wild_video_3d_reconstruction_torch.slam import DPVO, steps
+from wild_video_3d_reconstruction_torch.slam.graphs import graph_label
 from wild_video_3d_reconstruction_torch.utils.config import (
     DPVOConfig, load_config)
 
@@ -83,6 +100,17 @@ TOL_SLAM_TINY = 1e-2
 TOL_GRAPH_SYNC = 1e-4
 TOL_CHOL_RTOL, TOL_CHOL_ATOL = 2e-4, 2e-5   # the JAX package's chol test
 CHOL_DIMS = (54, 72, 256)
+WEIGHTS = "weights/vonet_synth_tpu_r3_step2000.pth"
+WEIGHTS_PARAMETERS = 3384324
+# synth_ate_tiny: the card's Sim(3) ATE within this fraction of the
+# identity floor of the CPU's. The protocol's 60-frame ATE is chaotic in
+# the rounding of its sums: on the CPU the same run read 0.29-0.93 (floor
+# 1.99) with only the thread count or the feature precision changed
+# (`scripts/torch_synth_ate_spread.py`, PERF.md section 2), so the card
+# (cuDNN's and its own kernels' sums in other orders) can only be held to
+# that spread, with room: half the floor.
+TOL_ATE_CARD_CPU = 0.5
+WILD_FRAMES = 40
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -713,7 +741,8 @@ def synthetic_frames(n, seed=0, ht=None, wd=None):
             for t in range(n)]
 
 
-def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False):
+def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
+               wild=None, network=None, inputs="", **overrides):
     """One VO run; fails unless each kernel in `expect` was launched.
     Steady frames replay CUDA graphs (the first one captures them); after
     it the loop runs under `torch.cuda.set_sync_debug_mode("error")`, so
@@ -721,13 +750,30 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False):
     read per frame between replays (a pinned copy and an event) is
     counted. With sync_mode the steady frames run the synchronous eager
     path instead. Steady FPS is over the frames after the first steady
-    one. Returns (launches, poses, dropped frames)."""
+    one.
+
+    Without `wild`: the drifting random texture, weights drawn from seed
+    0 (network None). With wild = `synth_ate.wild_sequence`'s (images,
+    poses_w2c, intrinsics, depths, masks): its first n_frames frames with
+    `inputs` ("d": the depth prior, "m": the mask) and the Sim(3) ATE
+    against its ground truth. The motion probe runs and accepts every
+    frame. Returns (launches, poses, dropped frames)."""
     # MOTION_PROBE_THRESH=0: the motion probe runs on every warm-up frame
-    # but accepts it (random weights give no meaningful flow to gate on)
-    cfg = load_config(config, MOTION_PROBE_THRESH=0.0, PALLAS_FUSED=fused)
-    frames = synthetic_frames(n_frames)
-    intr = np.array([320.0, 320.0, WD / 2, HT / 2])
-    slam = DPVO(cfg, None, HT, WD, seed=0, device="cuda",
+    # but accepts it (random weights give no meaningful flow; with the
+    # trained weights at 384x512 the shipped 2.0 parked the wild walk's
+    # frames until no run initialized within 40 frames)
+    overrides = dict(dict(MOTION_PROBE_THRESH=0.0), **overrides)
+    if wild is None:
+        frames = synthetic_frames(n_frames)
+        intr = np.array([320.0, 320.0, WD / 2, HT / 2])
+        depths = masks = [None] * n_frames
+    else:
+        frames, poses_gt, intr, depths, masks = (a[:n_frames] if a.ndim > 1
+                                                 else a for a in wild)
+        depths = depths if "d" in inputs else [None] * n_frames
+        masks = masks if "m" in inputs else [None] * n_frames
+    cfg = load_config(config, PALLAS_FUSED=fused, **overrides)
+    slam = DPVO(cfg, network, HT, WD, seed=0, device=DEV,
                 sync_mode=sync_mode)
     runner = slam.runner
     torch.cuda.synchronize()
@@ -741,7 +787,7 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False):
                 if slam.is_initialized and n_steady0 is None:
                     n_steady0 = t
                     t_capture = time.perf_counter()
-                slam(t, img, intr)
+                slam(t, img, intr, depth=depths[t], mask=masks[t])
                 if n_steady0 == t:
                     # the first steady frame (graph mode: the capture) done
                     torch.cuda.synchronize()
@@ -775,35 +821,135 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False):
     gaps = runner.gaps_ms() if not sync_mode else []
     graph = {} if sync_mode else dict(
         tiers=list(runner.tiers), graphs_captured=len(runner.graphs),
-        replays_per_tier={str(k): v for k, v in runner.replays.items()},
+        replays_per_tier={graph_label(k): v
+                          for k, v in runner.replays.items()},
         counter_reads_per_timed_frame=(runner.host_reads - reads0) / n_timed,
         sync_debug_mode="error after the first steady frame",
         replay_gap_ms_median=statistics.median(gaps) if gaps else None,
         replay_gap_ms_mean=statistics.mean(gaps) if gaps else None,
-        launches_per_replay={str(k): v for k, v in
+        launches_per_replay={graph_label(k): v for k, v in
                              runner.graph_launches.items()})
+    steady = n_frames - n_steady0
+    drops = len(slam.delta) - len(slam.parked)
+    accuracy = {}
+    if wild is not None:
+        ate, n_aligned, floor = synth_ate.ate_against(poses, tstamps,
+                                                      poses_gt)
+        accuracy = dict(ate_rmse=ate, ate_floor_identity=floor,
+                        n_aligned=n_aligned, inputs=inputs or "images")
     emit(name, config=config, fused=fused, variant=cfg.PALLAS_VARIANT,
          sync_mode=sync_mode, frames=n_frames, HxW=[HT, WD],
-         patches=cfg.PATCHES_PER_FRAME, initialized=slam.is_initialized,
-         keyframes=slam.n_host, n_edges=int(slam.state.n_edges),
-         max_n_edges=max_edges, steady_frames=n_frames - n_steady0,
-         timed_frames=n_timed, fps_steady=n_timed / (t_end - t_first),
+         patches=cfg.PATCHES_PER_FRAME, patch_selector=cfg.PATCH_SELECTOR,
+         initialized=slam.is_initialized, keyframes=slam.n_host,
+         parked=len(slam.parked), steady_keyframe_drops=drops,
+         keyframe_share_steady=1.0 - drops / steady,
+         n_edges=int(slam.state.n_edges), max_n_edges=max_edges,
+         steady_frames=steady, timed_frames=n_timed,
+         fps_steady=n_timed / (t_end - t_first),
          first_steady_frame_s=t_first - t_capture,
          total_s=t_end - t_start, launches=launches,
          launches_per_steady_frame=per_frame, poses_finite=finite,
          correlation=tally.summary(), tum_rows=int(back.shape[0]),
-         motion_gate="probe runs; MOTION_PROBE_THRESH=0 accepts every frame",
-         weights="random, seed 0", **graph)
+         motion_gate=f"MOTION_PROBE_THRESH={cfg.MOTION_PROBE_THRESH}",
+         weights="random, seed 0" if network is None else network,
+         **accuracy, **graph)
     if not finite or poses.shape != (n_frames, 7) or \
             back.shape != (n_frames, 7):
         fail(f"{name}: trajectory not finite or of the wrong shape")
+    if wild is not None and not accuracy["ate_rmse"] < floor:
+        fail(f"{name}: ATE {accuracy['ate_rmse']} not below the identity "
+             f"floor {floor}")
     for k in expect:
         if launches[k] <= 0:
             fail(f"{name}: kernel {k} was not launched on the main path")
-    if not sync_mode and sum(runner.replays.values()) != n_frames - n_steady0:
+    if not sync_mode and sum(runner.replays.values()) != steady:
         fail(f"{name}: {sum(runner.replays.values())} graph replays for "
-             f"{n_frames - n_steady0} steady frames")
+             f"{steady} steady frames")
     return launches, poses, sorted(slam.delta)
+
+
+def phase_weights():
+    """The committed trained weights load on the card: file size,
+    parameter count and a checksum of the tensors (sha256 over the fp32
+    bytes in state-dict order, read back from the card)."""
+    net = load_reference_checkpoint(WEIGHTS, device=DEV)
+    sha = hashlib.sha256()
+    n_params, total = 0, 0.0
+    for name, t in net.state_dict().items():
+        n_params += t.numel()
+        total += float(t.double().sum())
+        sha.update(name.encode())
+        sha.update(t.float().cpu().numpy().tobytes())
+    on_card = all(t.is_cuda for t in net.state_dict().values())
+    emit("weights", path=WEIGHTS, bytes=os.path.getsize(WEIGHTS),
+         tensors=len(net.state_dict()), parameters=n_params,
+         sha256_fp32_tensors=sha.hexdigest(), sum_of_parameters=total,
+         on_card=on_card)
+    if n_params != WEIGHTS_PARAMETERS or not on_card or \
+            not np.isfinite(total):
+        fail(f"weights: {n_params} parameters (expected "
+             f"{WEIGHTS_PARAMETERS}), on the card: {on_card}")
+
+
+def phase_synth_ate_tiny():
+    """`eval/synth_ate.run`'s protocol (48x64, 60 frames, walk, seed 0)
+    with the trained weights, on the card (graph replay) and on the CPU,
+    same torch seed. Fails unless the card's ATE is finite, below the
+    identity floor and within TOL_ATE_CARD_CPU x floor of the CPU's."""
+    out = {}
+    for dev in (DEV, "cpu"):
+        _native.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = synth_ate.run(WEIGHTS, frames=60, device=dev)
+        r.pop("poses")
+        out[dev] = dict(r, seconds=time.perf_counter() - t0,
+                        launches=dict(_native.LAUNCHES))
+    card, cpu = out[DEV], out["cpu"]
+    diff = abs(card["ate_rmse"] - cpu["ate_rmse"])
+    tol = TOL_ATE_CARD_CPU * cpu["ate_floor_identity"]
+    emit("synth_ate_tiny", protocol="eval/synth_ate.run: 48x64, 60 frames, "
+         "walk, seed 0", weights=WEIGHTS, card=card, cpu=cpu,
+         ate_abs_diff=diff, tol=tol)
+    if not np.isfinite(card["ate_rmse"]) or \
+            not card["ate_rmse"] < card["ate_floor_identity"] or \
+            not diff <= tol:
+        fail(f"synth_ate_tiny: card ATE {card['ate_rmse']} (floor "
+             f"{card['ate_floor_identity']}), CPU ATE {cpu['ate_rmse']}, "
+             f"tolerance {tol}")
+    if card["launches"]["corr_pyramid"] <= 0 or \
+            max(cpu["launches"].values()) != 0:
+        fail("synth_ate_tiny: the card run launched no correlation kernel "
+             "or the CPU run launched one")
+    return card["launches"]
+
+
+def phase_wild(wild):
+    """This slice's path at full width: configs/default.yaml at 384x512
+    with the trained weights, the world's depth as the prior and the
+    occluder's mask on every frame, replayed and in sync_mode (poses
+    bitwise equal: BA's card sums are fp64); then configs/fast.yaml with
+    keypoint patches on the same images, replayed."""
+    expect = ("corr_pyramid", "runsum")
+    runs = [phase_slam(name, "configs/default.yaml", WILD_FRAMES, expect,
+                       sync_mode=sync, wild=wild, network=WEIGHTS,
+                       inputs="dm")
+            for name, sync in (("slam_default_wild", False),
+                               ("slam_default_wild_sync", True))]
+    (_, pg, kfg), (_, ps, kfs) = runs
+    same = bool(np.array_equal(pg, ps))
+    emit("wild_graph_vs_sync", frames=WILD_FRAMES, poses_bitwise_equal=same,
+         max_abs_pose_diff=float(np.abs(pg - ps).max()),
+         same_keyframe_drops=kfg == kfs, keyframe_drops=len(kfg))
+    if not same or kfg != kfs:
+        fail("slam_default_wild: the replayed poses differ from sync_mode")
+    runs.append(phase_slam("slam_fast_keypoints", "configs/fast.yaml",
+                           WILD_FRAMES, expect, wild=wild, network=WEIGHTS,
+                           PATCH_SELECTOR="keypoints"))
+    launches = dict.fromkeys(_native.LAUNCHES, 0)
+    for run in runs:
+        for k, v in run[0].items():
+            launches[k] += v
+    return launches
 
 
 def phase_graph_vs_sync_default(graph_run, n_frames):
@@ -938,6 +1084,16 @@ def main():
             total[k] += v
     for k, v in phase_graph_vs_sync_default(runs["slam_default"], 40).items():
         total[k] += v
+    phase_weights()
+    t0 = time.perf_counter()
+    wild = synth_ate.wild_sequence(0, frames=WILD_FRAMES, ht=HT, wd=WD,
+                                   fx=320.0, fy=320.0)
+    emit("render", frames=WILD_FRAMES, HxW=[HT, WD], fx=320.0,
+         seconds=time.perf_counter() - t0,
+         masked_share=float(1.0 - wild[4].mean()))
+    for phase in (lambda: phase_wild(wild), phase_synth_ate_tiny):
+        for k, v in phase().items():
+            total[k] += v
     for row in rows:
         row["launches"] = total[row["name"]]
     signal.alarm(0)

@@ -1,13 +1,18 @@
 """The port's DPVO refuses the config values whose behaviour it does not
 have yet, and accepts those that change no result.
 
-The JAX package changes its result for PATCH_SELECTOR (`slam/steps.py:87`),
-ENABLE_GLOBAL_BA (`slam/dpvo.py:555`, with USE_DISTANCE_EDGES read only by
-its global BA) and loop_enabled (`demo.py:67`); until the port has them,
-`DPVO(cfg)` raises instead of running as if they were at their defaults.
+The JAX package changes its result for ENABLE_GLOBAL_BA
+(`slam/dpvo.py:555`, with USE_DISTANCE_EDGES read only by its global BA)
+and loop_enabled (`demo.py:67`); until the port has them, `DPVO(cfg)`
+raises instead of running as if they were at their defaults.
+PATCH_SELECTOR: keypoints (`slam/steps.py:87`) is ported: DPVO runs with
+it (its parity with the JAX package is in `tests/test_torch_depth_mask.py`
+and `tests/test_torch_wild_loops.py`).
 """
 
+import numpy as np
 import pytest
+import torch
 
 from wild_video_3d_reconstruction_torch.slam import DPVO
 from wild_video_3d_reconstruction_torch.utils.config import DPVOConfig
@@ -17,8 +22,7 @@ SMALL = dict(BUFFER_SIZE=32, PATCHES_PER_FRAME=8, REMOVAL_WINDOW=6,
              MEM=12)
 
 
-@pytest.mark.parametrize("key, value", [("PATCH_SELECTOR", "keypoints"),
-                                        ("ENABLE_GLOBAL_BA", True),
+@pytest.mark.parametrize("key, value", [("ENABLE_GLOBAL_BA", True),
                                         ("loop_enabled", True)])
 def test_unported_config_value_raises(key, value):
     cfg = DPVOConfig(**SMALL, **{key: value})
@@ -31,3 +35,24 @@ def test_config_values_that_change_no_result_are_accepted():
                      PALLAS_CORR=False, PALLAS_HYBRID_BUDGET=64)
     slam = DPVO(cfg, None, 48, 64, device="cpu")
     assert slam.cfg.EDGE_TIERS == 3 and not slam.is_initialized
+
+
+def test_keypoint_patch_selector_runs():
+    """PATCH_SELECTOR: keypoints tracks through the warm-up, the bootstrap
+    and steady frames; its centres are the image's corner maxima."""
+    cfg = DPVOConfig(**SMALL, PATCH_SELECTOR="keypoints",
+                     MOTION_PROBE_THRESH=-1.0, MIXED_PRECISION=False)
+    slam = DPVO(cfg, None, 48, 64, device="cpu")
+    rng = np.random.default_rng(0)
+    big = rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for t in range(13):
+            slam(t, big[2 * t:2 * t + 48, 3 * t:3 * t + 64].copy(),
+                 [40.0, 40.0, 32.0, 24.0])
+        poses, _ = slam.terminate()
+    finally:
+        torch.set_num_threads(n)
+    assert slam.is_initialized and np.isfinite(poses).all()
+    assert poses.shape == (13, 7)

@@ -3,8 +3,11 @@
 In a fresh interpreter with `jax`, `yaml`, `cv2` and the JAX package
 blocked, every module of `wild_video_3d_reconstruction_torch` and the
 `chip_smoke` module import, the configs load, and a DPVO builds and tracks
-frames on the CPU, through the steady step (chunked) and `sync_mode`. A static scan of the port's sources backs this up for
-lazy imports inside functions.
+frames on the CPU, through the steady step (chunked) and `sync_mode`,
+with a depth prior and a mask on some frames and with keypoint patches;
+the synthetic world renders and the trajectory metrics score it. A
+static scan of the port's sources backs this up for lazy imports inside
+functions: cv2 only inside the readers of `io/stream.py`.
 """
 
 import ast
@@ -23,6 +26,8 @@ for name in {blocked!r}:
     sys.modules[name] = None          # any import of it raises ImportError
 import importlib, pkgutil
 import numpy as np
+import torch
+torch.set_num_threads(1)      # beside the other test workers' threads
 import wild_video_3d_reconstruction_torch as pkg
 names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -40,15 +45,25 @@ rng = np.random.default_rng(0)
 for t in range(3):
     slam(t, rng.integers(0, 256, (48, 64, 3), dtype=np.uint8),
          [40.0, 40.0, 32.0, 24.0])
-# the steady step (slam.graphs), its chunked dispatch and sync_mode
+# the steady step (slam.graphs), its chunked dispatch and sync_mode, with
+# depth and masks on some frames, and keypoint patches
+from wild_video_3d_reconstruction_torch.eval import synth_ate
+images, poses, intr, depths, masks = synth_ate.wild_sequence(
+    0, frames=13, ht=48, wd=64, fx=40.0, fy=40.0)
 steady = cfg.merge_from_dict(dict(MOTION_PROBE_THRESH=-1.0,
-                                  PIPELINE_CHUNK=2))
-for sync in (False, True):
-    slam = DPVO(steady, None, 48, 64, device="cpu", sync_mode=sync)
+                                  PIPELINE_CHUNK=2, PATCH_LIFETIME=3,
+                                  REMOVAL_WINDOW=6, OPTIMIZATION_WINDOW=4,
+                                  MEM=12))
+for sync, sel in ((False, "random"), (True, "keypoints")):
+    slam = DPVO(steady.merge_from_dict(dict(PATCH_SELECTOR=sel)), None, 48,
+                64, device="cpu", sync_mode=sync)
     for t in range(13):
-        slam(t, rng.integers(0, 256, (48, 64, 3), dtype=np.uint8),
-             [40.0, 40.0, 32.0, 24.0])
-    assert slam.terminate()[0].shape == (13, 7)
+        slam(t, images[t], intr, depth=depths[t] if t % 3 else None,
+             mask=masks[t] if t % 2 else None)
+    est, tstamps = slam.terminate()
+    assert est.shape == (13, 7)
+    ate, n, floor = synth_ate.ate_against(est, tstamps, poses)
+    assert n == 13 and np.isfinite(ate) and floor > 0
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in {blocked!r} and sys.modules[k])
 print("LOADED", loaded, len(names))
@@ -78,9 +93,10 @@ def _imports(path):
 
 def test_port_sources_never_import_jax_or_the_jax_package():
     """Also the imports inside functions, which an import alone does not
-    run (cv2 only in the demo's image reader)."""
+    run (cv2 only inside the functions of `io/stream.py`)."""
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    cv2_lines = set()
     for f in files:
         for mod, line in _imports(f):
             top = mod.split(".")[0]
@@ -88,4 +104,11 @@ def test_port_sources_never_import_jax_or_the_jax_package():
                                "wild_video_3d_reconstruction_tpu"), \
                 f"{f.relative_to(ROOT)}:{line} imports {mod}"
             if top == "cv2":
-                assert f.name == "demo.py", f"{f}:{line} imports cv2"
+                assert f == PKG / "io" / "stream.py", \
+                    f"{f}:{line} imports cv2"
+                cv2_lines.add(line)
+    stream = ast.parse((PKG / "io" / "stream.py").read_text())
+    inside = {n.lineno for fn in ast.walk(stream)
+              if isinstance(fn, ast.FunctionDef) for n in ast.walk(fn)
+              if isinstance(n, ast.Import)}
+    assert cv2_lines and cv2_lines <= inside

@@ -656,3 +656,35 @@ def test_runsum_replayed_from_a_graph(cuda_device):
     assert torch.equal(out, out[tseg.run_first_rows(seg_t)])
     assert rec["runsum"] == 1 and sum(rec.values()) == 1
     assert after["runsum"] == before["runsum"] + 2
+
+
+def test_depth_mask_step_replayed_matches_sync_mode(cuda_device):
+    """The steady step with a depth prior and a mask on every frame
+    (graphs keyed by the (depth, mask) signature) replayed on the card,
+    against `sync_mode` on the card over the same rendered wild frames:
+    poses within 1e-4 (chip_smoke.py's TOL_GRAPH_SYNC; BA's card sums are
+    fp64, so they read equal there), the same keyframe drops."""
+    from wild_video_3d_reconstruction_torch.eval import synth_ate
+    from wild_video_3d_reconstruction_torch.slam import DPVO
+    from wild_video_3d_reconstruction_torch.utils.config import DPVOConfig
+
+    ht, wd = 48, 64
+    images, _, intr, depths, masks = synth_ate.wild_sequence(
+        0, frames=16, ht=ht, wd=wd, fx=40.0, fy=40.0)
+    cfg = DPVOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=8, REMOVAL_WINDOW=6,
+                     OPTIMIZATION_WINDOW=4, PATCH_LIFETIME=3,
+                     KEYFRAME_INDEX=2, MEM=12, GRADIENT_BIAS=False,
+                     MIXED_PRECISION=False, MOTION_PROBE_THRESH=-1.0)
+    out = {}
+    for sync in (False, True):
+        slam = DPVO(cfg, None, ht, wd, device="cuda", sync_mode=sync)
+        for t in range(len(images)):
+            slam(t, images[t], intr, depth=depths[t], mask=masks[t])
+        out[sync] = (slam.terminate()[0], sorted(slam.delta),
+                     dict(slam.runner.replays))
+    replays = out[False][2]
+    assert sum(replays.values()) == 6 and not out[True][2]
+    assert {sig for _, sig in replays} == {(True, True)}
+    np.testing.assert_allclose(out[False][0], out[True][0], rtol=0,
+                               atol=1e-4)
+    assert out[False][1] == out[True][1]

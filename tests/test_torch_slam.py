@@ -140,7 +140,7 @@ def run():
     for t, img in enumerate(frames):
         js(t, img, intrinsics=INTR)
         with one_thread():
-            ts(t, img, INTR, coords=draws[t][0], depths=draws[t][1])
+            ts(t, img, INTR, coords=draws[t][0], inv_depths=draws[t][1])
             if t + 1 == N_PREFIX:
                 snaps["prefix"] = terminated_copy(ts)
         if t == 8:        # the last warm-up frame before the bootstrap
@@ -192,7 +192,7 @@ def fused_runs(run):
         with one_thread():
             for t, img in enumerate(run["frames"]):
                 ts(t, img, INTR, coords=run["draws"][t][0],
-                   depths=run["draws"][t][1])
+                   inv_depths=run["draws"][t][1])
                 if t + 1 == N_PREFIX:
                     prefix = terminated_copy(ts)
         out[variant] = (ts.terminate()[0], sorted(ts.delta), prefix)
@@ -271,7 +271,7 @@ def test_runsum_path_matches_dense_path(run, monkeypatch):
         with one_thread():
             for t, img in enumerate(run["frames"][:n]):
                 ts(t, img, INTR, coords=run["draws"][t][0],
-                   depths=run["draws"][t][1])
+                   inv_depths=run["draws"][t][1])
         out[flag] = (ts.terminate()[0], sorted(ts.delta))
     assert out[True][1] == out[False][1]
     np.testing.assert_allclose(out[True][0], out[False][0], atol=TOL_TRAJ,

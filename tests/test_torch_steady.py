@@ -222,7 +222,7 @@ def _port_run(run, n_frames, **kw):
     with one_thread():
         for t, img in enumerate(run["frames"][:n_frames]):
             ts(t, img, INTR, coords=run["draws"][t][0],
-               depths=run["draws"][t][1])
+               inv_depths=run["draws"][t][1])
     return ts
 
 
@@ -282,11 +282,10 @@ def test_frame_step_reads_nothing_back(run, monkeypatch):
     st = port_state(run["final"], tcfg)
     n_rows = tsteps.choose_tier(tsteps.edge_tiers(tcfg, 1024, "cpu"),
                                 int(st.n_edges) + tsteps.appended_rows(tcfg))
-    cand, given, depths = tsteps.draw_inputs(
-        tcfg, st, HT, WD, *run["draws"][0])
+    draws = tsteps.draw_inputs(tcfg, st, HT, WD, *run["draws"][0])
     inputs = tsteps.FrameInputs(
         torch.from_numpy(run["frames"][0]), torch.tensor(INTR).float(),
-        torch.tensor(1.0), cand, given, depths)
+        torch.tensor(1.0), *draws)
     n0 = int(st.n_frames)
     with no_host_reads(monkeypatch):
         tsteps.frame_step(tcfg, _net(run), st, inputs, n_rows)

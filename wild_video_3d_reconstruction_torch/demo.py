@@ -1,23 +1,21 @@
 """CLI demo: `python -m wild_video_3d_reconstruction_torch.demo`.
 
-Takes the flags of the JAX package's demo. It streams an image directory,
-runs the VO loop and the final refinement, and writes the TUM trajectory.
-The parts of the JAX demo that the port does not have yet (video input,
-depth and mask inputs, loop closure, visualisation, PLY / COLMAP export,
-SLAM checkpoints, calibration without a calib file) raise
-NotImplementedError when asked for.
+Takes the flags of the JAX package's demo. It streams an image directory
+(with optional depth and mask directories) or a video file through
+`io/stream.py`, runs the VO loop and the final refinement, and writes the
+TUM trajectory. The parts of the JAX demo that the port does not have yet
+(loop closure, visualisation, PLY / COLMAP export, SLAM checkpoints,
+calibration without a calib file) raise NotImplementedError when asked
+for.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from itertools import chain
 from pathlib import Path
 
 import numpy as np
-
-IMG_EXTS = ("*.png", "*.jpeg", "*.jpg")
 
 
 def int_or_none(value):
@@ -26,47 +24,34 @@ def int_or_none(value):
     return int(value)
 
 
-def image_frames(imagedir, calib, stride=1, skip=0, end=None):
-    """Yield (t, image BGR uint8, intrinsics [4]) from an image directory:
-    undistorted when the calib has distortion terms, cropped to a multiple
-    of 16."""
-    import cv2
-
-    calib = np.asarray(calib, dtype=np.float64)
-    fx, fy, cx, cy = calib[:4]
-    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
-    files = sorted(chain.from_iterable(Path(imagedir).glob(e)
-                                       for e in IMG_EXTS))
-    files = files[skip:end:stride]
-    for t, imfile in enumerate(files):
-        image = cv2.imread(str(imfile), cv2.IMREAD_COLOR)
-        if len(calib) > 4:
-            image = cv2.undistort(image, K, calib[4:])
-        h, w, _ = image.shape
-        yield t, image[:h - h % 16, :w - w % 16], np.array([fx, fy, cx, cy])
-
-
 def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
         path="./output", save_trajectory=False, device="cuda", seed=0,
-        sync_mode=False):
-    """Run VO over the images of `imagedir`; returns (poses c2w [T, 7],
-    tstamps). sync_mode: the synchronous steady path (`slam.dpvo`)."""
-    from .io import export
+        sync_mode=False, depthdir=None, maskdir=None):
+    """Run VO over the images of `imagedir` (with the depth maps of
+    `depthdir` and the masks of `maskdir`) or over the video file
+    `imagedir`; returns (poses c2w [T, 7], tstamps). sync_mode: the
+    synchronous steady path (`slam.dpvo`)."""
+    import torch
+
+    from .io import export, stream
     from .slam import DPVO
 
-    if not os.path.isdir(imagedir):
-        raise NotImplementedError("video input is not ported yet; pass an "
-                                  "image directory")
     calib = np.loadtxt(calib, delimiter=" ") if isinstance(calib, str) \
         else calib
+    gen = stream.image_frames(imagedir, depthdir, maskdir, calib, stride,
+                              skip, end) if os.path.isdir(imagedir) else \
+        stream.video_frames(imagedir, calib, stride, skip)
+    reader = stream.Prefetcher(gen, maxsize=8,
+                               pin=torch.device(device).type == "cuda")
     slam = None
-    for t, image, intrinsics in image_frames(imagedir, calib, stride, skip,
-                                             end):
+    for t, image, depth, mask, intrinsics in reader:
         if slam is None:
             ht, wd, _ = image.shape
             slam = DPVO(cfg, network, ht, wd, seed=seed, device=device,
                         sync_mode=sync_mode)
-        slam(t, image, intrinsics)
+        slam(t, image, intrinsics, depth=depth, mask=mask)
+    if slam is None:
+        raise ValueError(f"no frames in {imagedir}")
 
     slam.refine(12)
     poses, tstamps = slam.terminate()
@@ -79,9 +64,12 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
     return poses, tstamps
 
 
-_NOT_PORTED = ("depthdir", "maskdir", "viz", "rerun", "loop_enabled",
-               "save_reconstruction", "export_colmap", "plot", "resume",
-               "checkpoint_every", "timeit")
+# the JAX demo's flags the port does not have yet: loop closure (ROADMAP
+# Queue 1 item 12), visualisation and the map's export (item 21), SLAM
+# checkpoints (item 11), timing (item 17)
+_NOT_PORTED = ("viz", "rerun", "loop_enabled", "save_reconstruction",
+               "export_colmap", "plot", "resume", "checkpoint_every",
+               "timeit")
 
 
 def main(argv=None):
@@ -143,7 +131,8 @@ def main(argv=None):
     run(cfg, network, args.imagedir, resource_path(args.calib),
         stride=args.stride, skip=args.skip, end=args.end, path=args.path,
         save_trajectory=args.save_trajectory, device=args.device,
-        seed=args.set_seed, sync_mode=args.sync_mode)
+        seed=args.set_seed, sync_mode=args.sync_mode,
+        depthdir=args.depthdir, maskdir=args.maskdir)
 
 
 if __name__ == "__main__":

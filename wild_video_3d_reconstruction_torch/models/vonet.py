@@ -5,8 +5,10 @@ DIM=384 context features and 128-channel matching features.
 
   VONet          the two stride-4 encoders and the update operator
   encode_frame   both encoders on one frame -> channel-last maps
-  select_patches random or gradient-biased centres (or the caller's):
-                 `draw_centres` on the host, `top_by_gradient` on the
+  select_patches random, gradient-biased, mask-constrained or keypoint
+                 centres (or the caller's): `draw_centres` on the host,
+                 then `top_by_gradient`, `top_by_mask` or
+                 `top_keypoints` (over `keypoint_response_map`) on the
                  frame's device
   gather_patches imap / gmap / colour / (x, y, d) patch gathers
 """
@@ -71,6 +73,67 @@ def image_gradient_map(image):
     dy = gray[1:, :-1] - gray[:-1, :-1]
     g = torch.sqrt(dx * dx + dy * dy)
     return avg_pool2d(g[..., None], 4)[..., 0]
+
+
+def _box_sum5(x):
+    """5x5 window sums of [H, W] with zeros outside (the JAX package's
+    `reduce_window(add, (5, 5), "SAME")`), as shifted adds: no
+    convolution, so no TF32."""
+    H, W = x.shape
+    p = torch.nn.functional.pad(x, (2, 2, 2, 2))
+    rows = p[:, 0:W] + p[:, 1:W + 1] + p[:, 2:W + 2] + p[:, 3:W + 3] + \
+        p[:, 4:W + 4]
+    return rows[0:H] + rows[1:H + 1] + rows[2:H + 2] + rows[3:H + 3] + \
+        rows[4:H + 4]
+
+
+def keypoint_response_map(image):
+    """Shi-Tomasi (min-eigenvalue) corner response on the 1/4 grid with
+    3x3 non-max suppression, the weight-free keypoint selector of the JAX
+    package. image [H, W, 3] uint8 -> [(H-1)//4, (W-1)//4], zero at
+    non-maxima."""
+    img = image.float()
+    gray = img[..., 0] * 0.114 + img[..., 1] * 0.587 + img[..., 2] * 0.299
+    gx = torch.zeros_like(gray)
+    gx[:, 1:-1] = 0.5 * (gray[:, 2:] - gray[:, :-2])
+    gy = torch.zeros_like(gray)
+    gy[1:-1, :] = 0.5 * (gray[2:, :] - gray[:-2, :])
+    sxx, syy, sxy = _box_sum5(gx * gx), _box_sum5(gy * gy), _box_sum5(gx * gy)
+    tr = sxx + syy
+    det = sxx * syy - sxy * sxy
+    resp = 0.5 * (tr - torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0)))
+    resp = avg_pool2d(resp[:-1, :-1, None], 4)[..., 0]
+    pooled = torch.nn.functional.max_pool2d(resp[None, None], 3, stride=1,
+                                            padding=1)[0, 0]
+    return torch.where(resp >= pooled, resp, 0.0)
+
+
+def top_keypoints(keypoint_map, M, h, w, fallback):
+    """The M strongest responses of keypoint_map as centres [M, 2] (x, y)
+    clipped to [1, w-2] x [1, h-2], strongest first (ties: the lower flat
+    index first, as `lax.top_k`); a slot whose response is not positive
+    takes that slot's centre of fallback [M, 2]."""
+    gw = keypoint_map.shape[1]
+    score, idx = torch.sort(keypoint_map.reshape(-1), descending=True,
+                            stable=True)
+    score, idx = score[:M], idx[:M]
+    cx = (idx % gw).clamp(1, w - 2).float()
+    cy = torch.div(idx, gw, rounding_mode="floor").clamp(1, h - 2).float()
+    ok = score > 0
+    return torch.stack([torch.where(ok, cx, fallback[:, 0]),
+                        torch.where(ok, cy, fallback[:, 1])], dim=-1)
+
+
+def top_by_mask(cand, jitter, M, mask):
+    """The M centres of cand [n, 2] whose full-resolution pixel the mask
+    [H, W] (True = static, usable) keeps, chosen at random among them by
+    jitter [n] in [0, 1): the top M of `kept + 1e-3 * jitter`, in
+    ascending order of it."""
+    mh, mw = mask.shape
+    x, y = cand[:, 0].long(), cand[:, 1].long()
+    ok = mask[(RES * y).clamp(0, mh - 1), (RES * x).clamp(0, mw - 1)]
+    score = ok.float() + 1e-3 * jitter
+    return cand[torch.argsort(score, stable=True)[-M:]]
 
 
 def draw_centres(generator, n, h, w):

@@ -2,12 +2,16 @@
 
     python -m wild_video_3d_reconstruction_torch.profile_frames \
         [--config configs/default.yaml] [--frames 40] [--out DIR] [--fused]
-        [--graphs]
+        [--graphs] [--network weights/vonet_synth_tpu_r3_step2000.pth]
+        [--synth]
 
 Drives DPVO on 384x512 synthetic frames (the drifting texture of
-`chip_smoke.py`, weights drawn from seed 0, the motion gate accepting
-every frame) through warm-up, bootstrap and the first steady frame, then
-measures the steady frames after it in passes:
+`chip_smoke.py`; with --synth the rendered wild input of
+`eval/synth_ate.py:wild_sequence`, the world's depth as the prior and a
+moving occluder's mask on every frame; the motion gate accepting every
+frame) with the weights of --network (a DPVO-layout
+`.pth`; none: drawn from seed 0) through warm-up, bootstrap and the first
+steady frame, then measures the steady frames after it in passes:
 
 * untimed by stages: the host clock over the frames with no
   synchronisation inside (`frame_ms`, `fps`);
@@ -49,8 +53,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .eval import synth_ate
 from .slam import DPVO
 from .slam import steps
+from .slam.graphs import graph_label
 from .utils.config import load_config
 
 HT, WD = 384, 512
@@ -126,26 +132,36 @@ def stage_timers(totals):
             setattr(steps, name, fn)
 
 
-def profile(config, n_frames, out_dir, fused=False, graphs=False):
+def profile(config, n_frames, out_dir, fused=False, graphs=False,
+            network=None, synth=False):
+    if synth:
+        frames, _, _, depths, masks = synth_ate.wild_sequence(
+            0, frames=n_frames, ht=HT, wd=WD, fx=320.0, fy=320.0)
+    else:
+        frames = synthetic_frames(n_frames)
+        depths = masks = [None] * n_frames
     cfg = load_config(config, MOTION_PROBE_THRESH=0.0, PALLAS_FUSED=fused)
-    frames = synthetic_frames(n_frames)
     intr = np.array([320.0, 320.0, WD / 2, HT / 2])
-    slam = DPVO(cfg, None, HT, WD, seed=0, device="cuda",
+    slam = DPVO(cfg, network, HT, WD, seed=0, device="cuda",
                 sync_mode=not graphs)
+
+    def track(i):
+        slam(i, frames[i], intr, depth=depths[i], mask=masks[i])
+
     t = 0
     while not slam.is_initialized:
-        slam(t, frames[t], intr)
+        track(t)
         t += 1
-    slam(t, frames[t], intr)          # the first steady frame (captures)
+    track(t)                          # the first steady frame (captures)
     t += 1
-    steady = frames[t:]
-    n_pass = len(steady) // (2 if graphs else 3)
+    steady = n_frames - t
+    n_pass = steady // (2 if graphs else 3)
     torch.cuda.synchronize()
 
     def run(first, count):
         t0 = time.perf_counter()
         for i in range(first, first + count):
-            slam(t + i, steady[i], intr)
+            track(t + i)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -168,7 +184,7 @@ def profile(config, n_frames, out_dir, fused=False, graphs=False):
     # pass 2: profiler trace, no synchronisation inside the frames
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    n2 = len(steady) - done
+    n2 = steady - done
     with torch.profiler.profile(activities=acts) as prof:
         wall2 = run(done, n2)
     # device-side events only: the CPU-side aten ops carry the device time
@@ -191,16 +207,22 @@ def profile(config, n_frames, out_dir, fused=False, graphs=False):
                                          ev.time_range.end))
     frame_ms = 1e3 * wall2 / n2
     runner = slam.runner
+    slam.terminate()                  # replays the event log: keyframes
     result = dict(
         config=config, fused=fused, variant=cfg.PALLAS_VARIANT, HxW=[HT, WD],
         patches=cfg.PATCHES_PER_FRAME, graphs=graphs,
+        weights=network or "random, seed 0",
+        input="wild: depth + mask" if synth else "drifting texture",
         device=torch.cuda.get_device_name(0),
         steady_frames_timed=n_pass, steady_frames_traced=n2,
-        n_edges=int(slam.state.n_edges),
+        n_edges=int(slam.state.n_edges), keyframes=slam.n_host,
+        keyframe_share_steady=1.0 - (len(slam.delta) - len(slam.parked))
+        / (steady + 1),
         frame_ms=1e3 * wall0 / n_pass, fps=n_pass / wall0,
         replay_gap_ms_median=statistics.median(gaps) if gaps else None,
         replay_gap_ms_mean=statistics.mean(gaps) if gaps else None,
-        replays_per_tier={str(k): v for k, v in runner.replays.items()},
+        replays_per_tier={graph_label(k): v
+                          for k, v in runner.replays.items()},
         frame_ms_synchronised=1e3 * wall1 / n_pass if wall1 else None,
         stage_ms=stage_ms,
         frame_ms_traced=frame_ms, device_ms_per_frame=device_ms,
@@ -216,7 +238,8 @@ def profile(config, n_frames, out_dir, fused=False, graphs=False):
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         name = os.path.splitext(os.path.basename(config))[0] + \
-            ("_fused" if fused else "") + ("_graphs" if graphs else "_sync")
+            ("_fused" if fused else "") + ("_synth" if synth else "") + \
+            ("_graphs" if graphs else "_sync")
         with open(os.path.join(out_dir, f"profile_{name}.json"), "w") as f:
             json.dump(result, f, indent=1)
     short = {k: v for k, v in result.items() if k != "top_kernels"}
@@ -239,6 +262,12 @@ def main(argv=None):
     parser.add_argument("--graphs", action="store_true",
                         help="steady frames through CUDA graph replay "
                              "(DPVO's default) instead of sync_mode")
+    parser.add_argument("--network", default=None,
+                        help="DPVO-layout .pth (default: weights drawn "
+                             "from seed 0)")
+    parser.add_argument("--synth", action="store_true",
+                        help="the rendered wild input with depth and mask "
+                             "instead of the drifting texture")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frames needs a CUDA card")
@@ -249,7 +278,7 @@ def main(argv=None):
     for config in args.config or ["configs/default.yaml",
                                   "configs/fast.yaml"]:
         profile(config, args.frames, args.out, fused=args.fused,
-                graphs=args.graphs)
+                graphs=args.graphs, network=args.network, synth=args.synth)
 
 
 if __name__ == "__main__":

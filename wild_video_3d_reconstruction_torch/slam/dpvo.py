@@ -12,7 +12,8 @@ Counterpart of the JAX package's `slam/dpvo.py`:
               (CUDA graph replays on the card, the same step eagerly on
               the CPU): the keyframe decision is taken on the device and
               logged in `state.log`; with PIPELINE_CHUNK = K the frames go
-              K at a time
+              K at a time, a change of input signature (depth prior,
+              mask) flushing the frames before it
   terminate   `_replay_log` turns the event log into the host bookkeeping
               (timestamps, the dropped-frame delta chain), then the full
               trajectory through the delta chain, camera-to-world
@@ -52,8 +53,7 @@ from .state import WARMUP, SLAMState, init_state
 # so ENABLE_GLOBAL_BA's check covers it. Keys that change no result stay
 # accepted: PIPELINE_CHUNK and EDGE_TIERS change how the steady frames are
 # dispatched, PALLAS_CORR and PALLAS_HYBRID_BUDGET nothing.
-NOT_PORTED = (("PATCH_SELECTOR", "random", 20),
-              ("ENABLE_GLOBAL_BA", False, 11),
+NOT_PORTED = (("ENABLE_GLOBAL_BA", False, 11),
               ("loop_enabled", False, 12))
 
 
@@ -107,30 +107,46 @@ class DPVO:
         self._events_dispatched = 0   # steady frames handed to the runner
         self._events_consumed = 0     # event-log rows replayed
         self._pending = []            # steady rows awaiting a chunk
+        self._pending_sig = None      # their signature (depth, mask)
 
     @property
     def n(self):
         """Accepted keyframes on the device (a host read)."""
         return int(self.state.n_frames)
 
-    def __call__(self, tstamp, image, intrinsics, coords=None, depths=None):
+    def __call__(self, tstamp, image, intrinsics, depth=None, mask=None,
+                 coords=None, inv_depths=None, cand=None, jitter=None):
         """Track one frame. image [H, W, 3] uint8 (BGR), intrinsics [4]
-        (fx, fy, cx, cy) at full resolution. coords [M, 2] and depths [M]
-        replace the random patch centres and inverse depths of this frame
-        (the parity tests feed the JAX run's draws)."""
+        (fx, fy, cx, cy) at full resolution; depth [H, W] an optional
+        metric depth prior, mask [H, W] an optional bool mask (True =
+        static, usable), as the JAX package's DPVO takes them.
+
+        Test hooks (the parity tests feed the JAX run's draws, since
+        jax.random cannot be reproduced here): coords [M, 2] replace the
+        frame's patch centres (no selection), cand [n, 2] and jitter [n]
+        the raw centre draws the selection runs on, inv_depths [M] the
+        patches' random inverse depths (`steps.draw_inputs`)."""
         cfg = self.cfg
         self.tlist.append(tstamp)
         # damped-linear timestamp ratio
         *_, a, b, c = [1] * 3 + self.tlist
         fac = float(c - b) / max(float(b - a), 1e-6)
         intr_np = np.asarray(intrinsics, dtype=np.float32)
+        sig = steps.signature(depth, mask)
         draws = steps.draw_inputs(cfg, self.state, self.ht, self.wd,
-                                  coords=coords, depths=depths)
+                                  coords=coords, inv_depths=inv_depths,
+                                  cand=cand, jitter=jitter, has_mask=sig[1])
+        depth = None if depth is None else np.asarray(depth, np.float32)
+        mask = None if mask is None else np.asarray(mask, bool)
 
         if self.is_initialized and not self.sync_mode:
             # steady state: the runner checks the buffer, edge table and
             # event log against the counters it reads between frames
-            self._pending.append((np.asarray(image), intr_np, fac, *draws))
+            if self._pending and self._pending_sig != sig:
+                self._flush_pending()
+            self._pending_sig = sig
+            self._pending.append(steps.FrameInputs(
+                np.asarray(image), intr_np, fac, *draws, depth, mask))
             self.counter += 1
             if len(self._pending) >= self.runner.chunk:
                 self._flush_pending()
@@ -140,11 +156,14 @@ class DPVO:
             raise RuntimeError("buffer full: increase cfg.BUFFER_SIZE "
                                "(--buffer)")
         dev = self.device
+
+        def up(v):
+            return None if v is None else torch.as_tensor(v).to(dev)
+
         inputs = steps.FrameInputs(
-            torch.as_tensor(np.asarray(image)).to(dev),
-            torch.as_tensor(intr_np).to(dev),
+            up(np.asarray(image)), up(intr_np),
             torch.tensor(fac, dtype=torch.float32, device=dev),
-            *(d.to(dev) for d in draws))
+            *(up(d) for d in draws), up(depth), up(mask))
         self.runner.invalidate()
         self.state = steps.insert_frame(cfg, self.net, self.state, inputs,
                                         initialized=self.is_initialized)

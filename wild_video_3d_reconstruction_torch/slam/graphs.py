@@ -1,14 +1,19 @@
 """The steady-state dispatch: the frame step captured and replayed as CUDA
 graphs on the card, run eagerly on the CPU.
 
-`steps.frame_step` has static shapes for a given edge tier and reads
-nothing back to the host, so on the card `StepRunner` captures it once per
-tier of `steps.edge_tiers` (after one eager warm-up run per tier on a side
-stream, the state restored after it; all tier graphs share one memory
-pool, and they replay one at a time on one stream) and replays the graph
-of each frame's tier. The frame's inputs (image, intrinsics, motion-model
-ratio, patch centres, inverse depths) go through pinned staging buffers
-into static device buffers the graphs read:
+`steps.frame_step` has static shapes for a given edge tier and input
+signature (`steps.signature`: whether the frame brings a depth prior and
+a mask) and reads nothing back to the host, so on the card `StepRunner`
+captures it once per tier of `steps.edge_tiers` and signature, all tiers
+of a signature the first time a frame of it comes (after one eager
+warm-up run per graph on a side stream, the state restored after it; all
+graphs share one memory pool, and they replay one at a time on one
+stream), and replays the graph of each frame's tier and signature (the
+JAX package jits one step per signature). The frame's inputs (image,
+intrinsics, motion-model ratio, patch centre draws, inverse depths, and
+per signature the mask selection's jitter, the depth map and the mask) go
+through pinned staging buffers into static device buffers, one set per
+signature, that its graphs read:
 
   * the host copy of frame t+1 into its pinned buffer waits on the event
     of the last upload from that buffer (two buffers alternate);
@@ -20,7 +25,8 @@ into static device buffers the graphs read:
     next frame's tier (the JAX package takes it on the device with
     `lax.cond`), and the checks below use all four.
 
-With PIPELINE_CHUNK = K > 1 `DPVO` hands K frames at once: they are
+With PIPELINE_CHUNK = K > 1 `DPVO` hands K frames of one signature at
+once (a change of signature flushes the frames before it): they are
 staged into one pinned buffer and uploaded with one copy per input, then
 each replay is preceded by a device copy of its row into the static
 buffers. A shorter list (a partial tail) goes frame by frame.
@@ -47,6 +53,14 @@ from ..ops import _native
 from . import steps
 from .state import FAULTS, LOG_IDX, N_EDGES, N_FRAMES, SLAMState
 
+def graph_label(key):
+    """A graph's key (tier, (has depth, has mask)) as text: "73728", or
+    "73728/depth+mask" for a signature with inputs."""
+    tier, (depth, mask) = key
+    extra = "+".join(n for n, on in (("depth", depth), ("mask", mask)) if on)
+    return f"{tier}/{extra}" if extra else str(tier)
+
+
 def check_faults(faults):
     """Raise when steady frames broke the run-sum SoftAgg's segment rule
     (`steps.update_op`, `state.faults`)."""
@@ -66,19 +80,14 @@ class StepRunner:
 
     def __init__(self, cfg, net, state: SLAMState, ht, wd):
         self.cfg, self.net, self.state = cfg, net, state
+        self.ht, self.wd = ht, wd
         self.device = state.poses.device
         self.graphed = self.device.type == "cuda"
         self.tiers = steps.edge_tiers(cfg, state.ii.shape[0], self.device)
         self.chunk = max(int(cfg.PIPELINE_CHUNK), 1)
-        M = cfg.PATCHES_PER_FRAME
-        n_cand = 3 * M if cfg.GRADIENT_BIAS else M
-        self._shapes = steps.FrameInputs(
-            image=((ht, wd, 3), torch.uint8), intrinsics=((4,), torch.float32),
-            fac=((), torch.float32), cand=((n_cand, 2), torch.float32),
-            given=((), torch.bool), depths=((M,), torch.float32))
-        self.graphs = {}            # tier -> CUDAGraph
-        self.graph_launches = {}    # tier -> kernel launches per replay
-        self.replays = {}           # tier -> replays
+        self.graphs = {}            # (tier, signature) -> CUDAGraph
+        self.graph_launches = {}    # (tier, signature) -> launches per replay
+        self.replays = {}           # (tier, signature) -> replays
         self.host_reads = 0         # counter reads between steady frames
         self.gaps = []              # ms on the device between two replays
         # True while the eager warm-up before a capture runs (its effects
@@ -89,25 +98,51 @@ class StepRunner:
         self._counts_ready = None
         if not self.graphed:
             return
-        self.inputs = self._alloc(self.device)
-        self._pinned = [self._alloc("cpu", pin=True) for _ in range(2)]
-        self._pinned_k = [self._alloc("cpu", k=self.chunk, pin=True)
-                          for _ in range(2)] if self.chunk > 1 else None
-        self._chunk_dev = self._alloc(self.device, k=self.chunk) \
-            if self.chunk > 1 else None
-        self._uploaded = [None, None]   # events of the last upload per buffer
+        # per signature: static inputs, two pinned buffers (and their K-row
+        # counterparts), allocated with the signature's first frame
+        self.inputs = {}
+        self._pinned, self._pinned_k, self._chunk_dev = {}, {}, {}
+        self._uploaded = {}         # (signature, buffer) -> last upload
         self._slot = 0
         self._counts_pinned = torch.zeros(4, dtype=torch.long).pin_memory()
         self.pool = torch.cuda.graph_pool_handle()
         self._gap = None            # (end of a replay, start of the next)
         self._last_end = None
 
-    def _alloc(self, device, k=None, pin=False):
+    def _shapes(self, sig):
+        """FrameInputs of (shape, dtype), None where signature sig has no
+        such input."""
+        M = self.cfg.PATCHES_PER_FRAME
+        n, jitter = steps.candidates(self.cfg, sig[1])
+        hw = (self.ht, self.wd)
+        return steps.FrameInputs(
+            image=(hw + (3,), torch.uint8), intrinsics=((4,), torch.float32),
+            fac=((), torch.float32), cand=((n, 2), torch.float32),
+            given=((), torch.bool), inv_depths=((M,), torch.float32),
+            jitter=((n,), torch.float32) if jitter else None,
+            depth=(hw, torch.float32) if sig[0] else None,
+            mask=(hw, torch.bool) if sig[1] else None)
+
+    def _alloc(self, sig, device, k=None, pin=False):
         def one(shape, dtype):
             shape = shape if k is None else (k,) + shape
             t = torch.empty(shape, dtype=dtype, device=device)
             return t.pin_memory() if pin else t
-        return steps.FrameInputs(*(one(*sd) for sd in self._shapes))
+        return steps.FrameInputs(*(None if sd is None else one(*sd)
+                                   for sd in self._shapes(sig)))
+
+    def _buffers(self, sig):
+        """Allocate signature sig's buffers on its first frame."""
+        if sig in self.inputs:
+            return
+        self.inputs[sig] = self._alloc(sig, self.device)
+        self._pinned[sig] = [self._alloc(sig, "cpu", pin=True)
+                             for _ in range(2)]
+        if self.chunk > 1:
+            self._pinned_k[sig] = [self._alloc(sig, "cpu", k=self.chunk,
+                                               pin=True) for _ in range(2)]
+            self._chunk_dev[sig] = self._alloc(sig, self.device,
+                                               k=self.chunk)
 
     # ------------------------------------------------------------ counters
     def counts(self):
@@ -137,32 +172,35 @@ class StepRunner:
 
     # --------------------------------------------------------------- frames
     def run(self, rows):
-        """Track the frames of `rows`, each (image [H, W, 3] uint8 numpy,
-        intrinsics [4], fac, cand, given, depths) as `steps.draw_inputs`
-        and `DPVO` make them."""
+        """Track the frames of `rows`, each a FrameInputs of host values
+        (image [H, W, 3] uint8 numpy, intrinsics [4], fac, then
+        `steps.draw_inputs`' draws, depth [H, W] or None, mask [H, W] or
+        None) as `DPVO` makes them, all of one signature."""
+        sig = steps.signature(rows[0].depth, rows[0].mask)
+        if any(steps.signature(r.depth, r.mask) != sig for r in rows):
+            raise ValueError("a chunk of frames of more than one signature")
+        shapes = self._shapes(sig)
         if not self.graphed:
-            chunk = steps.FrameInputs(*(torch.stack([self._cpu(f, v)
-                                                     for v in col])
-                                        for f, col in zip(self._shapes,
-                                                          zip(*rows))))
+            chunk = steps.FrameInputs(*(
+                None if sd is None else
+                torch.stack([torch.as_tensor(v, dtype=sd[1]) for v in col])
+                for sd, col in zip(shapes, zip(*rows))))
             steps.chunk_step(self.cfg, self.net, self.state, chunk,
                              self._tier_of)
             self.counts_host = None
             return
+        self._buffers(sig)
         if len(rows) == self.chunk > 1:
-            staged = self._stage(rows)
+            staged = self._stage(rows, sig)
             for i in range(len(rows)):
-                for dst, src in zip(self.inputs, staged):
-                    dst.copy_(src[i], non_blocking=True)
-                self._replay()
+                for dst, src in zip(self.inputs[sig], staged):
+                    if dst is not None:
+                        dst.copy_(src[i], non_blocking=True)
+                self._replay(sig)
         else:
             for row in rows:
-                self._stage([row])
-                self._replay()
-
-    @staticmethod
-    def _cpu(shape_dtype, v):
-        return torch.as_tensor(v, dtype=shape_dtype[1])
+                self._stage([row], sig)
+                self._replay(sig)
 
     def _tier_of(self, state):
         """The eager path's tier: read the counters, check, choose."""
@@ -189,44 +227,48 @@ class StepRunner:
                                f"{steps.appended_rows(cfg)} rows > {E})")
         return steps.choose_tier(self.tiers, need)
 
-    def _stage(self, rows):
-        """Host rows -> pinned buffer -> device (the static inputs for one
-        row, the chunk buffer for K). Returns the device buffers."""
+    def _stage(self, rows, sig):
+        """Host rows -> pinned buffer -> device (the static inputs of
+        signature sig for one row, its chunk buffer for K). Returns the
+        device buffers."""
         k = len(rows)
         slot = self._slot
         self._slot ^= 1
-        if self._uploaded[slot] is not None:
-            self._uploaded[slot].synchronize()
+        if self._uploaded.get((sig, slot)) is not None:
+            self._uploaded[sig, slot].synchronize()
         if k == 1:
-            pinned, dev = self._pinned[slot], self.inputs
+            pinned, dev = self._pinned[sig][slot], self.inputs[sig]
             for buf, v in zip(pinned, rows[0]):
-                buf.copy_(torch.as_tensor(v))
+                if buf is not None:
+                    buf.copy_(torch.as_tensor(v))
         else:
-            pinned, dev = self._pinned_k[slot], self._chunk_dev
+            pinned, dev = self._pinned_k[sig][slot], self._chunk_dev[sig]
             for i, row in enumerate(rows):
                 for buf, v in zip(pinned, row):
-                    buf[i].copy_(torch.as_tensor(v))
+                    if buf is not None:
+                        buf[i].copy_(torch.as_tensor(v))
         for d, p in zip(dev, pinned):
-            d.copy_(p, non_blocking=True)
+            if d is not None:
+                d.copy_(p, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
-        self._uploaded[slot] = ev
+        self._uploaded[sig, slot] = ev
         return dev
 
-    def _replay(self):
+    def _replay(self, sig):
         tier = self._checked_tier()     # waits for the last replay
-        if not self.graphs:
-            self.capture()
+        if (tier, sig) not in self.graphs:
+            self.capture(sig)
         self._take_gap()
         start = torch.cuda.Event(enable_timing=True)
         start.record()
-        self.graphs[tier].replay()
-        self.replays[tier] = self.replays.get(tier, 0) + 1
+        self.graphs[tier, sig].replay()
+        self.replays[tier, sig] = self.replays.get((tier, sig), 0) + 1
         if self._last_end is not None:
             self._gap = (self._last_end, start)
         self._last_end = torch.cuda.Event(enable_timing=True)
         self._last_end.record()
-        _native.add_launches(self.graph_launches[tier])
+        _native.add_launches(self.graph_launches[tier, sig])
         self._request_counts()
 
     def _take_gap(self):
@@ -237,13 +279,13 @@ class StepRunner:
             self._gap = None
 
     # -------------------------------------------------------------- capture
-    def capture(self):
-        """Capture the frame step once per tier, on the current inputs.
-        The state comes out as it went in."""
+    def capture(self, sig):
+        """Capture the frame step of signature sig once per tier, on the
+        current inputs. The state comes out as it went in."""
         for tier in self.tiers:
-            self._capture(tier)
+            self._capture(tier, sig)
 
-    def _capture(self, tier):
+    def _capture(self, tier, sig):
         tensors = _state_tensors(self.state)
         saved = [t.clone() for t in tensors]
         cur = torch.cuda.current_stream()
@@ -252,8 +294,8 @@ class StepRunner:
         self.warming_up = True
         try:
             with torch.cuda.stream(side):
-                steps.frame_step(self.cfg, self.net, self.state, self.inputs,
-                                 tier)
+                steps.frame_step(self.cfg, self.net, self.state,
+                                 self.inputs[sig], tier)
         finally:
             self.warming_up = False
         cur.wait_stream(side)
@@ -263,10 +305,10 @@ class StepRunner:
         graph = torch.cuda.CUDAGraph()
         with _native.captured_launches() as launches, \
                 torch.cuda.graph(graph, pool=self.pool):
-            steps.frame_step(self.cfg, self.net, self.state, self.inputs,
-                             tier)
-        self.graph_launches[tier] = launches
-        self.graphs[tier] = graph
+            steps.frame_step(self.cfg, self.net, self.state,
+                             self.inputs[sig], tier)
+        self.graph_launches[tier, sig] = launches
+        self.graphs[tier, sig] = graph
 
     def gaps_ms(self):
         """Device-timeline gaps between consecutive replays (ms): the end of

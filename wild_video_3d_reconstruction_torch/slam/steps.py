@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's `slam/steps.py`:
 
-  insert_frame        encoders + patch selection + buffer writes + motion
-                      model
+  insert_frame        encoders + patch selection (random, gradient, mask,
+                      keypoints) + the depth prior + buffer writes +
+                      motion model
   motion_probe        trial update on the newest M edges -> median flow
   append_edges        forward + backward factors of the newest frame
   update_op           reproject -> correlate -> update operator -> 2
@@ -69,9 +70,13 @@ def feat_dtype(cfg):
     return torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
 
 
-def _median(x):
-    """Median that averages the two middle values (as numpy and JAX do)."""
-    return torch.quantile(x.reshape(-1).float(), 0.5)
+def _median(x, dim=None):
+    """Median that averages the two middle values (as numpy and JAX do),
+    of all of x or along dim; NaN where a NaN is in it."""
+    x = x.float()
+    if dim is None:
+        x, dim = x.reshape(-1), 0
+    return torch.quantile(x, 0.5, dim=dim, interpolation="midpoint")
 
 
 def _relu(x):
@@ -93,34 +98,73 @@ class FrameInputs(NamedTuple):
     """What one steady frame brings to `frame_step`, on the state's device:
     image [H, W, 3] uint8, intrinsics [4] fp32 (full resolution), fac 0-d
     fp32 (the motion model's timestamp ratio), cand [n, 2] fp32 patch
-    centres drawn on the host (n = 3M with GRADIENT_BIAS, else M), given
-    0-d bool (cand[:M] are the caller's centres: no gradient selection),
-    depths [M] fp32 inverse-depth draws."""
+    centres drawn on the host (`candidates`), given 0-d bool (cand[:M] are
+    the caller's centres: no selection), inv_depths [M] fp32 inverse-depth
+    draws, jitter [n] fp32 (the mask selection's random order, else None),
+    depth [H, W] fp32 metric depth prior or None, mask [H, W] bool (True =
+    static, usable) or None. Which of the last three are present is the
+    frame's signature (`signature`)."""
     image: torch.Tensor
     intrinsics: torch.Tensor
     fac: torch.Tensor
     cand: torch.Tensor
     given: torch.Tensor
-    depths: torch.Tensor
+    inv_depths: torch.Tensor
+    jitter: torch.Tensor | None = None
+    depth: torch.Tensor | None = None
+    mask: torch.Tensor | None = None
 
 
-def draw_inputs(cfg, state: SLAMState, ht, wd, coords=None, depths=None):
-    """The host draws of one frame from state.rng, as CPU tensors:
-    (cand [n, 2], given, depths [M]). coords [M, 2] / depths [M] given by
-    the caller replace the draws (the parity tests feed the JAX run's)."""
+def signature(depth, mask):
+    """(has depth, has mask): the frame's kind of input, which fixes the
+    shapes of its FrameInputs (the JAX package jits one step per kind)."""
+    return depth is not None, mask is not None
+
+
+def candidates(cfg, has_mask):
+    """(n, jitter): the host's centre draws per frame and whether the mask
+    selection's jitter is drawn. Keypoints: M fallback centres; gradient
+    bias: 3M (the mask then only scales the depth prior); a mask: 4M and
+    their jitter; else M (the JAX package's `select_patches`)."""
     M = cfg.PATCHES_PER_FRAME
-    n = 3 * M if cfg.GRADIENT_BIAS else M
+    if cfg.PATCH_SELECTOR == "keypoints":
+        return M, False
+    if cfg.GRADIENT_BIAS:
+        return 3 * M, False
+    if has_mask:
+        return 4 * M, True
+    return M, False
+
+
+def _f32(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def draw_inputs(cfg, state: SLAMState, ht, wd, coords=None, inv_depths=None,
+                cand=None, jitter=None, has_mask=False):
+    """The host draws of one frame from state.rng, as CPU tensors:
+    (cand [n, 2], given, inv_depths [M], jitter [n] or None), n and the
+    jitter as `candidates` says. The parity tests replace draws with the
+    JAX run's: coords [M, 2] are the centres themselves (no selection);
+    cand [n, 2] and jitter [n] the raw draws the selection runs on;
+    inv_depths [M] the inverse depths."""
+    M = cfg.PATCHES_PER_FRAME
+    n, with_jitter = candidates(cfg, has_mask)
     given = coords is not None
     if given:
-        cand = torch.zeros(n, 2)
-        cand[:M] = torch.from_numpy(np.array(coords, dtype=np.float32))
+        c = torch.zeros(n, 2)
+        c[:M] = _f32(coords)
+    elif cand is not None:
+        c = _f32(cand).reshape(n, 2)
     else:
-        cand = vonet.draw_centres(state.rng, n, ht // RES, wd // RES)
-    if depths is None:
-        d = torch.rand(M, generator=state.rng)
-    else:
-        d = torch.from_numpy(np.array(depths, dtype=np.float32))
-    return cand, torch.tensor(given), d
+        c = vonet.draw_centres(state.rng, n, ht // RES, wd // RES)
+    j = None
+    if with_jitter:
+        j = _f32(jitter).reshape(n) if jitter is not None else \
+            torch.rand(n, generator=state.rng)
+    d = _f32(inv_depths) if inv_depths is not None else \
+        torch.rand(M, generator=state.rng)
+    return c, torch.tensor(given), d, j
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +207,50 @@ def appended_rows(cfg):
 # frame insertion
 # ---------------------------------------------------------------------------
 
+def select_centres(cfg, image, inputs: FrameInputs, h, w):
+    """The frame's M patch centres on the 1/4 grid (h x w) from the host's
+    draws: keypoints win over everything, then the gradient bias, then the
+    mask (used for selection only without the gradient bias); the
+    caller's centres (inputs.given) go in as they are."""
+    M = cfg.PATCHES_PER_FRAME
+    cand = inputs.cand
+    if cfg.PATCH_SELECTOR == "keypoints":
+        top = vonet.top_keypoints(vonet.keypoint_response_map(image), M, h,
+                                  w, cand[:M])
+    elif cfg.GRADIENT_BIAS:
+        top = vonet.top_by_gradient(cand, M, vonet.image_gradient_map(image))
+    elif inputs.mask is not None:
+        top = vonet.top_by_mask(cand, inputs.jitter, M, inputs.mask)
+    else:
+        return cand
+    return torch.where(inputs.given, cand[:M], top)
+
+
+def depth_prior(cfg, state: SLAMState, patches, depth, mask, initialized):
+    """Per-patch inverse depth from the metric depth map [H, W]: 1 / the
+    median of its samples at the patch's 3x3 full-resolution pixels.
+    Once initialized and with a mask, the map is first scaled to the
+    current map scale (the median inverse depth of the last 3 frames'
+    patches over the median depth of the masked-in pixels). An all-masked
+    frame gives NaN, as in the JAX package."""
+    M = cfg.PATCHES_PER_FRAME
+    depth_f = depth.float()
+    if initialized and mask is not None:
+        rows = _relu(state.n_frames - 3) * M + \
+            torch.arange(3 * M, device=depth_f.device)
+        s = _median(state.patches[rows, 2])
+        ref_med = torch.nanquantile(
+            torch.where(mask, depth_f, float("nan")).reshape(-1), 0.5,
+            interpolation="midpoint")
+        depth_f = (1.0 / s.clamp(min=1e-6)) / ref_med.clamp(min=1e-6) * \
+            depth_f
+    H, W = depth_f.shape
+    px = (patches[:, 0] * RES).long().clamp(0, W - 1)
+    py = (patches[:, 1] * RES).long().clamp(0, H - 1)
+    med = _median(depth_f[py, px].reshape(M, -1), dim=1)
+    return 1.0 / med.clamp(min=1e-6)
+
+
 def insert_frame(cfg, net, state: SLAMState, inputs: FrameInputs,
                  initialized=False):
     """Insert the frame at slot n = state.n_frames (not yet accepted)."""
@@ -173,19 +261,20 @@ def insert_frame(cfg, net, state: SLAMState, inputs: FrameInputs,
     image = inputs.image
 
     feats = vonet.encode_frame(net, image, fd)
-    coords = inputs.cand
-    if cfg.GRADIENT_BIAS:
-        top = vonet.top_by_gradient(inputs.cand, M,
-                                    vonet.image_gradient_map(image))
-        coords = torch.where(inputs.given, inputs.cand[:M], top)
+    coords = select_centres(cfg, image, inputs, feats.fmap.shape[0],
+                            feats.fmap.shape[1])
     imap_p, gmap_p, clr, patches = vonet.gather_patches(feats, image, coords)
 
     # patch inverse-depth initialization: the frame's draws, or the median
-    # of the last 3 frames' depths ("median")
-    d0 = inputs.depths
+    # of the last 3 frames' depths ("median"), or the depth prior; with a
+    # prior the patches are also BA's depth anchors (patches_est)
+    d0 = inputs.inv_depths
     if initialized and cfg.DEPTH_INIT == "median":
         rows = _relu(n - 3) * M + torch.arange(3 * M, device=dev)
         d0 = _median(state.patches[rows, 2]).expand(M)
+    if inputs.depth is not None:
+        d0 = depth_prior(cfg, state, patches, inputs.depth, inputs.mask,
+                         initialized)
     patches[:, 2] = d0[:, None, None]
 
     # damped-linear motion extrapolation
@@ -203,7 +292,10 @@ def insert_frame(cfg, net, state: SLAMState, inputs: FrameInputs,
     srows = slot * M + torch.arange(M, device=dev)
     state.poses.index_copy_(0, n1, new_pose[None])
     state.patches.index_copy_(0, rows, patches)
-    state.patches_est.index_fill_(0, rows, 0.0)
+    if inputs.depth is not None:
+        state.patches_est.index_copy_(0, rows, patches)
+    else:
+        state.patches_est.index_fill_(0, rows, 0.0)
     state.intrinsics.index_copy_(0, n1,
                                  (inputs.intrinsics.float() / RES)[None])
     state.colors.index_copy_(0, n1, clr.clamp(0, 255).to(torch.uint8)[None])
@@ -533,10 +625,11 @@ def frame_step(cfg, net, state: SLAMState, inputs: FrameInputs, n_rows):
 
 def chunk_step(cfg, net, state: SLAMState, chunk, tier_of):
     """`frame_step` over the frames of `chunk` (FrameInputs with a leading
-    K axis) in order; tier_of(state) gives each frame's tier."""
-    for inputs in zip(*chunk):
-        state = frame_step(cfg, net, state, FrameInputs(*inputs),
-                           tier_of(state))
+    K axis; None where the signature has no such input) in order;
+    tier_of(state) gives each frame's tier."""
+    for i in range(chunk.image.shape[0]):
+        inputs = FrameInputs(*(None if f is None else f[i] for f in chunk))
+        state = frame_step(cfg, net, state, inputs, tier_of(state))
     return state
 
 

@@ -27,6 +27,18 @@ images (`slam_fast_keypoints`); and `eval/synth_ate.run`'s protocol on
 the card and on the CPU (`synth_ate_tiny`: each ATE below the identity
 floor, the two within TOL_ATE_CARD_CPU of the floor).
 
+Then a run that keeps keyframes (`slam_default_wild_keep`): the same
+walk at KEEP_STRIDE times its motion per frame (`wild_sequence(stride=)`)
+at default.yaml with ENABLE_GLOBAL_BA, replayed and in `sync_mode`
+(bitwise equal), failing unless steady frames are both kept and dropped
+and a replay runs above tier 0; global BA at terminate on both runs'
+states through the correlation body of `csrc/corr_box.cu` (the plain
+correlation never called, the ATE after it below the floor); the map
+(`points_and_colors`) written as PLY and as COLMAP text and binary models
+and read back equal; and the replayed run saved at a steady frame after a
+keep (`slam/checkpoint.py`), resumed in a new DPVO and finished, its
+trajectory bitwise equal to the uninterrupted run's.
+
 The kernel counts include the launches of every graph replay. Each VO run
 also reports the share of its correlation edge-levels that took the
 per-pixel path. Each phase prints one JSON line; the kernel summary and
@@ -40,6 +52,7 @@ import faulthandler
 import hashlib
 import json
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -51,17 +64,22 @@ import numpy as np
 import torch
 
 from wild_video_3d_reconstruction_torch.eval import synth_ate
-from wild_video_3d_reconstruction_torch.io import export
+from wild_video_3d_reconstruction_torch.io import colmap_model, export
 from wild_video_3d_reconstruction_torch.models.convert import \
     load_reference_checkpoint
 from wild_video_3d_reconstruction_torch.ops import _native
 from wild_video_3d_reconstruction_torch.ops import chol as tchol
+from wild_video_3d_reconstruction_torch.ops import corr as tcorr
+from wild_video_3d_reconstruction_torch.ops import lie
 from wild_video_3d_reconstruction_torch.ops import corr_region as tregion
 from wild_video_3d_reconstruction_torch.ops.corr import (
     LEVELS, box_plan, corr_lookup, patch_corr_pyramid)
 from wild_video_3d_reconstruction_torch.ops.segment import (
     run_first_rows, run_segment_sum_sorted, run_segment_sum_sorted_plain)
 from wild_video_3d_reconstruction_torch.slam import DPVO, steps
+from wild_video_3d_reconstruction_torch.slam import global_ba as tgba
+from wild_video_3d_reconstruction_torch.slam.checkpoint import (load_slam,
+                                                                save_slam)
 from wild_video_3d_reconstruction_torch.slam.graphs import graph_label
 from wild_video_3d_reconstruction_torch.utils.config import (
     DPVOConfig, load_config)
@@ -111,6 +129,17 @@ WEIGHTS_PARAMETERS = 3384324
 # that spread, with room: half the floor.
 TOL_ATE_CARD_CPU = 0.5
 WILD_FRAMES = 40
+# slam_default_wild_keep: every KEEP_STRIDE-th frame of a walk of
+# WILD_FRAMES * KEEP_STRIDE steps (`wild_sequence(stride=)`), the smallest
+# of 4, 6, 8 whose steady frames cross KEYFRAME_THRESH on some frames and
+# not on others (`scripts/torch_wild_stride.py` on the CPU). The keep does
+# not hang on one crossing: the flow metric rises frame by frame from a
+# fixed anchor until a keep, and the same scene still keeps a frame with
+# the threshold raised by 20% (the script's `--keyframe-thresh` on the
+# card, PERF.md section 6). A buffer that holds every frame of the run
+# (ENABLE_GLOBAL_BA sizes the rings to it).
+KEEP_STRIDE = 4
+KEEP_BUFFER = 64
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -742,7 +771,8 @@ def synthetic_frames(n, seed=0, ht=None, wd=None):
 
 
 def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
-               wild=None, network=None, inputs="", **overrides):
+               wild=None, network=None, inputs="", on_frame=None,
+               **overrides):
     """One VO run; fails unless each kernel in `expect` was launched.
     Steady frames replay CUDA graphs (the first one captures them); after
     it the loop runs under `torch.cuda.set_sync_debug_mode("error")`, so
@@ -756,8 +786,9 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
     0 (network None). With wild = `synth_ate.wild_sequence`'s (images,
     poses_w2c, intrinsics, depths, masks): its first n_frames frames with
     `inputs` ("d": the depth prior, "m": the mask) and the Sim(3) ATE
-    against its ground truth. The motion probe runs and accepts every
-    frame. Returns (launches, poses, dropped frames)."""
+    against its ground truth, which must lie below the identity floor.
+    The motion probe runs and accepts every frame; its value on each
+    warm-up frame is printed. Returns (launches, poses, dropped frames)."""
     # MOTION_PROBE_THRESH=0: the motion probe runs on every warm-up frame
     # but accepts it (random weights give no meaningful flow; with the
     # trained weights at 384x512 the shipped 2.0 parked the wild walk's
@@ -781,6 +812,16 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
     t_start = time.perf_counter()
     n_steady0, t_first, first_launch, max_edges, reads0 = None, None, None, \
         0, 0
+    t_hooks = 0.0
+    probes = []
+    probe = steps.motion_probe
+
+    def recorded_probe(*a):
+        v = probe(*a)
+        probes.append(float(v))
+        return v
+
+    steps.motion_probe = recorded_probe
     with PerPixelTally(runner) as tally:
         try:
             for t, img in enumerate(frames):
@@ -802,11 +843,16 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
                     max_edges = max(max_edges, int(slam.state.n_edges)
                                     if sync_mode else
                                     (runner.counts_host or [0, 0])[1])
+                if on_frame is not None:
+                    t_hook = time.perf_counter()
+                    on_frame(t, slam)
+                    t_hooks += time.perf_counter() - t_hook
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    t_end = time.perf_counter()
-    poses, tstamps = slam.terminate()
+            steps.motion_probe = probe
+    t_end = time.perf_counter() - t_hooks
+    poses, tstamps = slam.trajectory()
     launches = dict(_native.LAUNCHES)
     if n_steady0 is None or t_first is None:
         fail(f"{name}: DPVO never initialized")
@@ -823,6 +869,8 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
         tiers=list(runner.tiers), graphs_captured=len(runner.graphs),
         replays_per_tier={graph_label(k): v
                           for k, v in runner.replays.items()},
+        replay_ms_median_per_tier={graph_label(k): statistics.median(v)
+                                   for k, v in runner.replay_times.items()},
         counter_reads_per_timed_frame=(runner.host_reads - reads0) / n_timed,
         sync_debug_mode="error after the first steady frame",
         replay_gap_ms_median=statistics.median(gaps) if gaps else None,
@@ -837,22 +885,25 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
                                                       poses_gt)
         accuracy = dict(ate_rmse=ate, ate_floor_identity=floor,
                         n_aligned=n_aligned, inputs=inputs or "images")
-    emit(name, config=config, fused=fused, variant=cfg.PALLAS_VARIANT,
-         sync_mode=sync_mode, frames=n_frames, HxW=[HT, WD],
-         patches=cfg.PATCHES_PER_FRAME, patch_selector=cfg.PATCH_SELECTOR,
-         initialized=slam.is_initialized, keyframes=slam.n_host,
-         parked=len(slam.parked), steady_keyframe_drops=drops,
-         keyframe_share_steady=1.0 - drops / steady,
-         n_edges=int(slam.state.n_edges), max_n_edges=max_edges,
-         steady_frames=steady, timed_frames=n_timed,
-         fps_steady=n_timed / (t_end - t_first),
-         first_steady_frame_s=t_first - t_capture,
-         total_s=t_end - t_start, launches=launches,
-         launches_per_steady_frame=per_frame, poses_finite=finite,
-         correlation=tally.summary(), tum_rows=int(back.shape[0]),
-         motion_gate=f"MOTION_PROBE_THRESH={cfg.MOTION_PROBE_THRESH}",
-         weights="random, seed 0" if network is None else network,
-         **accuracy, **graph)
+    record = dict(
+        config=config, fused=fused, variant=cfg.PALLAS_VARIANT,
+        sync_mode=sync_mode, frames=n_frames, HxW=[HT, WD],
+        patches=cfg.PATCHES_PER_FRAME, patch_selector=cfg.PATCH_SELECTOR,
+        initialized=slam.is_initialized, keyframes=slam.n_host,
+        parked=len(slam.parked), steady_keyframe_drops=drops,
+        keyframe_share_steady=1.0 - drops / steady,
+        n_edges=int(slam.state.n_edges), max_n_edges=max_edges,
+        steady_frames=steady, timed_frames=n_timed,
+        fps_steady=n_timed / (t_end - t_first),
+        first_steady_frame_s=t_first - t_capture,
+        total_s=t_end - t_start, launches=launches,
+        launches_per_steady_frame=per_frame, poses_finite=finite,
+        correlation=tally.summary(), tum_rows=int(back.shape[0]),
+        motion_gate=f"MOTION_PROBE_THRESH={cfg.MOTION_PROBE_THRESH}",
+        probe_per_warmup_frame=probes,
+        weights="random, seed 0" if network is None else network,
+        **accuracy, **graph)
+    emit(name, **record)
     if not finite or poses.shape != (n_frames, 7) or \
             back.shape != (n_frames, 7):
         fail(f"{name}: trajectory not finite or of the wrong shape")
@@ -865,7 +916,7 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
     if not sync_mode and sum(runner.replays.values()) != steady:
         fail(f"{name}: {sum(runner.replays.values())} graph replays for "
              f"{steady} steady frames")
-    return launches, poses, sorted(slam.delta)
+    return launches, poses, sorted(slam.delta), slam, record
 
 
 def phase_weights():
@@ -935,7 +986,7 @@ def phase_wild(wild):
                        inputs="dm")
             for name, sync in (("slam_default_wild", False),
                                ("slam_default_wild_sync", True))]
-    (_, pg, kfg), (_, ps, kfs) = runs
+    (_, pg, kfg, *_), (_, ps, kfs, *_) = runs
     same = bool(np.array_equal(pg, ps))
     emit("wild_graph_vs_sync", frames=WILD_FRAMES, poses_bitwise_equal=same,
          max_abs_pose_diff=float(np.abs(pg - ps).max()),
@@ -952,6 +1003,226 @@ def phase_wild(wild):
     return launches
 
 
+class CallCount:
+    """Within the block, counts the calls of `module.name` and, with
+    tally, the valid edge-levels of its correlation lookups and those on
+    the per-pixel path (`per_pixel_counts`)."""
+
+    def __init__(self, module, name, tally=False):
+        self.module, self.name, self.tally = module, name, tally
+        self.saved = getattr(module, name)
+        self.calls = 0
+        self.counts = torch.zeros(2, dtype=torch.long, device=DEV)
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.calls += 1
+            if self.tally:
+                _, pyramid, coords, _, _, valid = a[:6]
+                self.counts += torch.stack(per_pixel_counts(pyramid, coords,
+                                                            valid))
+            return self.saved(*a, **kw)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def phase_global_ba(name, slam, poses_gt, ate_before):
+    """Global BA on the VO run's state (`DPVO.terminate`'s first step):
+    its keyframes, frame and patch edges, wall time, the correlation
+    launches and per-pixel share of its pass, and the ATE after it. Fails
+    unless csrc/corr_box.cu launched, the plain correlation was not
+    called, the poses are finite and the ATE is below the floor."""
+    torch.cuda.synchronize()
+    _native.reset_launch_counts()
+    with CallCount(tgba, "corr_lookup", tally=True) as lookups, \
+            CallCount(tcorr, "patch_corr_pyramid") as plain:
+        t0 = time.perf_counter()
+        n, frame_edges, patch_edges = tgba.run_global_ba(slam.cfg, slam)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(_native.LAUNCHES)
+    poses, tstamps = slam.trajectory()
+    ate, n_aligned, floor = synth_ate.ate_against(poses, tstamps, poses_gt)
+    finite = bool(np.isfinite(poses).all())
+    n_levels, n_pp = lookups.counts.tolist()
+    emit(name, keyframes=n, frame_edges=frame_edges, patch_edges=patch_edges,
+         seconds=seconds, corr_lookups=lookups.calls,
+         plain_patch_corr_pyramid_calls=plain.calls, launches=launches,
+         correlation=dict(edge_levels=n_levels, per_pixel_edge_levels=n_pp,
+                          per_pixel_share=n_pp / max(n_levels, 1)),
+         ate_rmse_before=ate_before, ate_rmse_after=ate,
+         ate_floor_identity=floor, n_aligned=n_aligned, poses_finite=finite)
+    if launches["corr_pyramid"] <= 0 or plain.calls or not finite or \
+            not ate < floor:
+        fail(f"{name}: corr_box.cu launches {launches['corr_pyramid']}, "
+             f"plain correlation calls {plain.calls}, finite poses {finite}, "
+             f"ATE {ate} against the floor {floor}")
+    return launches, poses, tstamps
+
+
+def phase_export(slam, poses, tstamps):
+    """The map and its files: points_and_colors, PLY written and read back,
+    the COLMAP text and binary models written and read back, and the
+    frames of transforms.json."""
+    pts, clr = slam.points_and_colors()
+    fx, fy, cx, cy = (slam.state.intrinsics[0] * 4).tolist()
+    w2c = lie.se3_inv(torch.from_numpy(poses.astype(np.float32))).numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        export.save_ply(os.path.join(tmp, "map.ply"), pts, clr)
+        pts_back, clr_back = export.load_ply(os.path.join(tmp, "map.ply"),
+                                             return_colors=True)
+        ply_ok = np.array_equal(pts_back, pts) and \
+            np.array_equal(clr_back, clr)
+        out = export.save_output_for_colmap(
+            os.path.join(tmp, "colmap"), poses, tstamps, pts, clr, fx, fy,
+            cx, cy, HT, WD)
+        models = {"text": colmap_model.read_model(out),
+                  "binary": colmap_model.read_model(
+                      out / "colmap" / "sparse" / "0")}
+        with open(out / "transforms.json") as f:
+            n_transforms = len(json.load(f)["frames"])
+    same = {}
+    for kind, (cams, ims, pts3) in models.items():
+        xyz = np.stack([pts3[i + 1].xyz for i in range(len(pts3))])
+        rgb = np.stack([pts3[i + 1].rgb for i in range(len(pts3))])
+        qt = np.stack([np.concatenate([ims[i + 1].tvec, ims[i + 1].qvec])
+                       for i in range(len(ims))])
+        same[kind] = bool(
+            np.array_equal(cams[1].params, [fx, fy, cx, cy]) and
+            np.array_equal(xyz, pts) and np.array_equal(rgb, clr) and
+            np.array_equal(qt, np.concatenate(
+                [w2c[:, :3], w2c[:, 6:7], w2c[:, 3:6]], 1)))
+    emit("export", points=int(pts.shape[0]), ply_read_back_equal=ply_ok,
+         colmap_read_back_equal=same, images=len(models["text"][1]),
+         transforms_frames=n_transforms)
+    if not ply_ok or not all(same.values()) or \
+            n_transforms != len(poses) or not len(pts):
+        fail("export: a file did not read back to what was written")
+
+
+def keep_decisions(slam, rec):
+    """The replayed run's keyframe decisions from its event log: the flow
+    metric over 2 of each steady frame against KEYFRAME_THRESH (kept at
+    or above it) and each side's margin, relative to the threshold: the
+    least by which a kept frame cleared it, and a dropped one missed it."""
+    th = slam.cfg.KEYFRAME_THRESH
+    log = slam.state.log[:int(slam.state.log_idx)].cpu().numpy()
+    first = rec["frames"] - rec["steady_frames"]
+    flow = (log[:, 8] / 2).tolist()
+    kept = (log[:, 0] < 0.5).tolist()
+    kept_flow = [f for f, k in zip(flow, kept) if k]
+    dropped_flow = [f for f, k in zip(flow, kept) if not k]
+    emit("wild_keep_decisions", keyframe_thresh=th, first_steady_frame=first,
+         flow_over_2=flow, kept_frames=[first + i for i, k in enumerate(kept)
+                                        if k],
+         flow_over_2_kept=kept_flow,
+         margin_kept_min=min(kept_flow, default=th) / th - 1,
+         flow_over_2_dropped_max=max(dropped_flow, default=None),
+         margin_dropped_min=1 - max(dropped_flow, default=0.0) / th)
+
+
+def phase_wild_keep(keep):
+    """Item 19b on the card: default.yaml at 384x512 with the trained
+    weights on the wild walk at KEEP_STRIDE times its motion per frame
+    (depth and mask on every frame, ENABLE_GLOBAL_BA), replayed and in
+    sync_mode (bitwise equal, before and after global BA); steady frames
+    both kept and dropped, replays above tier 0; global BA and the export
+    on the replayed run's state; the replayed run saved at a steady frame
+    after a keep near the middle, resumed in a new DPVO and finished,
+    bitwise equal to the uninterrupted run."""
+    expect = ("corr_pyramid", "runsum")
+    overrides = dict(ENABLE_GLOBAL_BA=True, BUFFER_SIZE=KEEP_BUFFER)
+    saved = {}
+
+    def checkpoint(t, slam):
+        # at the first steady frame past the middle once a steady frame
+        # was kept (the keyframe count the runner last read, before this
+        # frame's replay, no read of its own, has grown past the
+        # bootstrap's), with a frame left to resume: a keep that rounding
+        # moves a few frames later still saves
+        counts = slam.runner.counts_host
+        if saved or counts is None or t < WILD_FRAMES // 2 or \
+                t > WILD_FRAMES - 2 or counts[0] <= DPVO.WARMUP:
+            return
+        torch.cuda.set_sync_debug_mode(0)
+        save_slam(slam, saved.setdefault("path", tempfile.mkdtemp()))
+        saved["frame"] = t
+        torch.cuda.set_sync_debug_mode("error")
+
+    runs = {}
+    for name, sync in (("slam_default_wild_keep", False),
+                       ("slam_default_wild_keep_sync", True)):
+        runs[name] = phase_slam(
+            name, "configs/default.yaml", WILD_FRAMES, expect,
+            sync_mode=sync, wild=keep, network=WEIGHTS, inputs="dm",
+            on_frame=None if sync else checkpoint, **overrides)
+        r = runs[name][4]
+        if not 0 < r["steady_keyframe_drops"] < r["steady_frames"]:
+            fail(f"{name}: no steady frame both kept and dropped")
+    r = runs["slam_default_wild_keep"][4]
+    if not any(v and k.split("/")[0] != str(r["tiers"][0])
+               for k, v in r["replays_per_tier"].items()):
+        fail("slam_default_wild_keep: no replay above tier 0")
+    (lg, pg, kfg, slam, rec), (ls, ps, kfs, slam_s, rec_s) = runs.values()
+    keep_decisions(slam, rec)
+    poses_gt = keep[1]
+    gba_launches, pg_gba, tstamps = phase_global_ba(
+        "global_ba", slam, poses_gt, rec["ate_rmse"])
+    gba_sync_launches, ps_gba, _ = phase_global_ba(
+        "global_ba_sync", slam_s, poses_gt, rec_s["ate_rmse"])
+    same = bool(np.array_equal(pg, ps))
+    same_gba = bool(np.array_equal(pg_gba, ps_gba))
+    emit("wild_keep_graph_vs_sync", frames=WILD_FRAMES,
+         poses_bitwise_equal=same, after_global_ba_bitwise_equal=same_gba,
+         max_abs_pose_diff=float(np.abs(pg - ps).max()),
+         same_keyframe_drops=kfg == kfs, keyframe_drops=len(kfg),
+         ate_rmse_before_global_ba=rec["ate_rmse"])
+    if not same or not same_gba or kfg != kfs:
+        fail("slam_default_wild_keep: the replayed poses differ from "
+             "sync_mode")
+    phase_export(slam, pg_gba, tstamps)
+    if "frame" not in saved:
+        fail("slam_default_wild_keep: no steady frame after a keep to save "
+             "at")
+    # the resumed run: a new DPVO, the checkpoint, the frames after it
+    frames, _, intr, depths, masks = keep
+    cfg = load_config("configs/default.yaml", MOTION_PROBE_THRESH=0.0,
+                      **overrides)
+    resumed = load_slam(DPVO(cfg, WEIGHTS, HT, WD, seed=0, device=DEV),
+                        saved["path"])
+    torch.cuda.synchronize()
+    _native.reset_launch_counts()
+    for t in range(resumed.counter, WILD_FRAMES):
+        resumed(t, frames[t], intr, depth=depths[t], mask=masks[t])
+    pr, _ = resumed.trajectory()
+    resume_launches = dict(_native.LAUNCHES)
+    pr_gba, _ = resumed.terminate()
+    shutil.rmtree(saved["path"])
+    same_resume = bool(np.array_equal(pr, pg))
+    same_resume_gba = bool(np.array_equal(pr_gba, pg_gba))
+    emit("checkpoint_resume", saved_at_frame=saved["frame"],
+         resumed_frames=WILD_FRAMES - saved["frame"] - 1,
+         replays_per_tier={graph_label(k): v
+                           for k, v in resumed.runner.replays.items()},
+         launches=resume_launches, trajectory_bitwise_equal=same_resume,
+         after_global_ba_bitwise_equal=same_resume_gba,
+         max_abs_pose_diff=float(np.abs(pr - pg).max()))
+    if not same_resume or not same_resume_gba:
+        fail("checkpoint_resume: the resumed trajectory differs from the "
+             "uninterrupted run's")
+    for k in expect:
+        if resume_launches[k] <= 0:
+            fail(f"checkpoint_resume: kernel {k} was not launched")
+    launches = dict.fromkeys(_native.LAUNCHES, 0)
+    for run in (lg, ls, gba_launches, gba_sync_launches, resume_launches):
+        for k, v in run.items():
+            launches[k] += v
+    return launches
+
+
 def phase_graph_vs_sync_default(graph_run, n_frames):
     """default.yaml through graph replay against two synchronous eager runs
     of the same tree: the same keyframe drops; the graph run's poses
@@ -961,8 +1232,8 @@ def phase_graph_vs_sync_default(graph_run, n_frames):
     expect = ("corr_pyramid", "runsum")
     runs = [phase_slam(f"slam_default_sync_{i}", "configs/default.yaml",
                        n_frames, expect, sync_mode=True) for i in (1, 2)]
-    (_, pa, kfa), (_, pb, kfb) = runs
-    _, pg, kfg = graph_run
+    (_, pa, kfa, *_), (_, pb, kfb, *_) = runs
+    _, pg, kfg, *_ = graph_run
     eager_diff = float(np.abs(pa - pb).max())
     graph_diff = float(np.abs(pg - pa).max())
     same_kf = kfa == kfb == kfg
@@ -1094,6 +1365,15 @@ def main():
     for phase in (lambda: phase_wild(wild), phase_synth_ate_tiny):
         for k, v in phase().items():
             total[k] += v
+    del wild
+    t0 = time.perf_counter()
+    keep = synth_ate.wild_sequence(0, frames=WILD_FRAMES, ht=HT, wd=WD,
+                                   fx=320.0, fy=320.0, stride=KEEP_STRIDE)
+    emit("render_keep", frames=WILD_FRAMES, stride=KEEP_STRIDE,
+         HxW=[HT, WD], fx=320.0, seconds=time.perf_counter() - t0,
+         masked_share=float(1.0 - keep[4].mean()))
+    for k, v in phase_wild_keep(keep).items():
+        total[k] += v
     for row in rows:
         row["launches"] = total[row["name"]]
     signal.alarm(0)

@@ -5,7 +5,9 @@ blocked, every module of `wild_video_3d_reconstruction_torch` and the
 `chip_smoke` module import, the configs load, and a DPVO builds and tracks
 frames on the CPU, through the steady step (chunked) and `sync_mode`,
 with a depth prior and a mask on some frames and with keypoint patches;
-the synthetic world renders and the trajectory metrics score it. A
+the synthetic world renders and the trajectory metrics score it; a run
+with global BA saves and loads a checkpoint, terminates and writes its
+map as PLY and as a COLMAP model. A
 static scan of the port's sources backs this up for lazy imports inside
 functions: cv2 only inside the readers of `io/stream.py`.
 """
@@ -64,6 +66,25 @@ for sync, sel in ((False, "random"), (True, "keypoints")):
     assert est.shape == (13, 7)
     ate, n, floor = synth_ate.ate_against(est, tstamps, poses)
     assert n == 13 and np.isfinite(ate) and floor > 0
+# the terminate-time outputs: global BA, the map, PLY / COLMAP files, a
+# checkpoint
+import tempfile
+from wild_video_3d_reconstruction_torch.io import colmap_model, export
+from wild_video_3d_reconstruction_torch.slam.checkpoint import (load_slam,
+                                                                save_slam)
+gba = steady.merge_from_dict(dict(ENABLE_GLOBAL_BA=True, PIPELINE_CHUNK=1))
+slam = DPVO(gba, None, 48, 64, device="cpu")
+for t in range(12):
+    slam(t, images[t], intr)
+with tempfile.TemporaryDirectory() as tmp:
+    save_slam(slam, tmp)
+    load_slam(DPVO(gba, None, 48, 64, device="cpu"), tmp)
+    pts, clr = slam.points_and_colors()
+    est, tstamps = slam.terminate()
+    export.save_ply(tmp + "/map.ply", pts, clr)
+    out = export.save_output_for_colmap(tmp + "/colmap", est, tstamps, pts,
+                                        clr, 40.0, 40.0, 32.0, 24.0, 48, 64)
+    assert len(colmap_model.read_model(out)[1]) == 12
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in {blocked!r} and sys.modules[k])
 print("LOADED", loaded, len(names))

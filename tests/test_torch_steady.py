@@ -24,7 +24,15 @@ that log at terminate. These tests hold it against the JAX package:
     edge table equal), with a partial tail;
   * `sync_mode=True` equals the steady path: the same keyframe drops,
     the trajectory within 1e-4;
-  * the step reads nothing back to the host.
+  * the step reads nothing back to the host;
+  * the scene that keeps keyframes on the card (`chip_smoke.py`
+    `slam_default_wild_keep`: `eval/synth_ate.py:wild_sequence` at
+    KEEP_STRIDE times the walk's motion per frame, depth and mask on every
+    frame, the trained weights) at this tiny size, with default.yaml's
+    KEYFRAME_THRESH scaled by the width (64 / 512, the flow metric's
+    pixels shrink with the image): the JAX run and the port's fed its
+    draws take the same decisions, keeps and drops both, with the same
+    log rows, the trajectory within the slice's 1e-2.
 
 The JAX run and the port's run are `tests/test_torch_slam.py`'s module
 fixture, reused.
@@ -38,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from wild_video_3d_reconstruction_torch.eval import synth_ate as tsynth_ate
 from wild_video_3d_reconstruction_torch.models import vonet as tvonet
 from wild_video_3d_reconstruction_torch.slam import DPVO as TDPVO
 from wild_video_3d_reconstruction_torch.slam import graphs as tgraphs
@@ -48,15 +57,22 @@ from wild_video_3d_reconstruction_torch.utils.config import \
 from wild_video_3d_reconstruction_torch.utils.config import load_config
 from wild_video_3d_reconstruction_tpu.slam import state as jstate
 from wild_video_3d_reconstruction_tpu.slam import steps as jsteps
+from wild_video_3d_reconstruction_tpu.utils.config import \
+    DPVOConfig as JConfig
 
 from test_torch_slam import (HT, INTR, TINY, TOL_STEP, TOL_TRAJ, WD, _net,
                              one_thread, run)  # noqa: F401 (the fixture)
+from test_torch_synth_ate import jax_raw_draws, jax_run
+from test_torch_weights import WEIGHTS, exporter
 
 E_PAD = 3072            # rows of the grown edge table
 TOL_UNTIERED = 1e-5
 TOL_CHUNK = 5e-4
 TOL_SYNC = 1e-4
 EDGE_KEYS = ("ii", "jj", "kk", "valid", "net", "target", "weight")
+KEEP_STRIDE = 4         # chip_smoke.py's KEEP_STRIDE
+KEEP_FRAMES = 18
+KEEP_THRESH = 15.0 * WD / 512
 
 
 @pytest.fixture
@@ -337,3 +353,49 @@ def test_runner_checks_the_tables_before_a_frame():
     st.faults = 1
     with pytest.raises(RuntimeError, match="outside the BA patch table"):
         runner._tier_of(st)
+
+
+@pytest.fixture(scope="module")
+def keep_runs():
+    """The keep scene through the JAX DPVO and the port's, fed the JAX
+    draws (the mask selection's)."""
+    images, _, intr, depths, masks = tsynth_ate.wild_sequence(
+        0, frames=KEEP_FRAMES, ht=HT, wd=WD, fx=40.0, fy=40.0,
+        stride=KEEP_STRIDE)
+    cfg = dict(TINY, KEYFRAME_THRESH=KEEP_THRESH)
+    params = jax.tree.map(np.asarray, exporter.restore())
+    jp, jt, js = jax_run(params, (images, intr), JConfig(**cfg),
+                         list(zip(depths, masks)))
+    draws = jax_raw_draws(KEEP_FRAMES, TINY["PATCHES_PER_FRAME"], HT // 4,
+                          WD // 4, "mask")
+    ts = TDPVO(TConfig(**cfg), str(WEIGHTS), HT, WD, device="cpu")
+    with one_thread():
+        for t in range(KEEP_FRAMES):
+            ts(t, images[t], intr, depth=depths[t], mask=masks[t],
+               **draws[t])
+        tp, tt = ts.terminate()
+    return dict(jp=jp, jt=jt, js=js, tp=tp, tt=tt, ts=ts)
+
+
+def test_keep_scene_takes_both_branches(keep_runs):
+    """Steady frames kept (the keep side of the predicated
+    keyframe_shift) and dropped, in both packages."""
+    for slam in (keep_runs["js"], keep_runs["ts"]):
+        n = int(slam.state.log_idx)
+        removed = np.asarray(slam.state.log[:n])[:, 0]
+        assert n == KEEP_FRAMES - slam._init_counter
+        assert (removed == 0).any() and (removed == 1).any()
+
+
+def test_keep_scene_matches_jax(keep_runs):
+    js, ts = keep_runs["js"], keep_runs["ts"]
+    n = int(js.state.log_idx)
+    jl, tl = np.asarray(js.state.log)[:n], ts.state.log[:n].numpy()
+    np.testing.assert_array_equal(tl[:, 0], jl[:, 0])
+    np.testing.assert_array_equal(tl[:, 9], jl[:, 9])
+    close(tl[:, 1:8], jl[:, 1:8], TOL_TRAJ)
+    np.testing.assert_allclose(tl[:, 8], jl[:, 8], rtol=TOL_TRAJ, atol=0)
+    assert sorted(ts.delta) == sorted(js.delta)
+    np.testing.assert_array_equal(keep_runs["tt"], keep_runs["jt"])
+    np.testing.assert_allclose(keep_runs["tp"], keep_runs["jp"],
+                               atol=TOL_TRAJ, rtol=0)

@@ -83,6 +83,29 @@ def test_wild_sequence_depth_and_mask_are_the_worlds():
     assert (off <= 1).all()
 
 
+@pytest.mark.parametrize("stride", [2, 4])
+def test_wild_sequence_stride_renders_every_strideth_frame(stride):
+    """wild_sequence(frames=F, stride=s) is wild_sequence(frames=F * s) at
+    frames 0, s, 2s, ...: its walk, its world's texture scale and the
+    occluder's drift are those of F * s frames (tolerance 0)."""
+    kw = dict(ht=48, wd=64, fx=40.0, fy=40.0)
+    got = tsynth_ate.wild_sequence(0, frames=3, stride=stride, **kw)
+    want = tsynth_ate.wild_sequence(0, frames=3 * stride, **kw)
+    for name, a, b in zip(("images", "poses", "intrinsics", "depths",
+                           "masks"), got, want):
+        b = b if name == "intrinsics" else b[::stride]
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_texture_blocked_by_rows_is_the_jax_packages():
+    """The port blends the texture in blocks of rows; over more rows than
+    one block it gives the JAX package's texture bit for bit."""
+    h = 2 * tsynth._TEXTURE_ROWS + 37
+    _equal(tsynth._texture(np.random.default_rng(7), h, 24),
+           jsynth._texture(np.random.default_rng(7), h, 24))
+
+
 def _trajectory(rng, n):
     t = np.cumsum(rng.normal(0, 0.3, (n, 3)), 0)
     q = rng.normal(size=(n, 4))

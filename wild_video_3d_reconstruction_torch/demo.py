@@ -1,12 +1,16 @@
 """CLI demo: `python -m wild_video_3d_reconstruction_torch.demo`.
 
-Takes the flags of the JAX package's demo. It streams an image directory
-(with optional depth and mask directories) or a video file through
-`io/stream.py`, runs the VO loop and the final refinement, and writes the
-TUM trajectory. The parts of the JAX demo that the port does not have yet
-(loop closure, visualisation, PLY / COLMAP export, SLAM checkpoints,
-calibration without a calib file) raise NotImplementedError when asked
-for.
+Takes the flags of the JAX package's demo and runs its steps in its
+order: it streams an image directory (with optional depth and mask
+directories) or a video file through `io/stream.py`, tracks every frame
+(`--checkpoint_every N` saves the run every N frames, `--resume DIR`
+continues a saved one; `--viz` / `--rerun` log the map as it grows, in
+`sync_mode`; `--timeit` times each frame), runs the final refinement,
+then writes the outputs asked for: the map as PLY (`--save_reconstruction`),
+the TUM trajectory (`--save_trajectory`), a plot of it (`--plot`, needs
+matplotlib) and a COLMAP model with nerfstudio's `transforms.json`
+(`--export_colmap`). Loop closure and calibration without a calib file
+are not ported yet and raise NotImplementedError when asked for.
 """
 
 from __future__ import annotations
@@ -26,15 +30,21 @@ def int_or_none(value):
 
 def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
         path="./output", save_trajectory=False, device="cuda", seed=0,
-        sync_mode=False, depthdir=None, maskdir=None):
+        sync_mode=False, depthdir=None, maskdir=None, timeit=False,
+        save_reconstruction=False, export_colmap=False, plot=False,
+        viz=False, rerun=False, checkpoint_every=0, resume=None):
     """Run VO over the images of `imagedir` (with the depth maps of
     `depthdir` and the masks of `maskdir`) or over the video file
-    `imagedir`; returns (poses c2w [T, 7], tstamps). sync_mode: the
-    synchronous steady path (`slam.dpvo`)."""
+    `imagedir`, and write the outputs asked for under `path`; returns
+    (poses c2w [T, 7], tstamps, (points [K, 3], colors [K, 3])).
+    sync_mode: the synchronous steady path (`slam.dpvo`), also taken with
+    viz or rerun."""
     import torch
 
     from .io import export, stream
     from .slam import DPVO
+    from .slam.checkpoint import load_slam, save_slam
+    from .utils.timer import Timer, timing_summary
 
     calib = np.loadtxt(calib, delimiter=" ") if isinstance(calib, str) \
         else calib
@@ -44,32 +54,68 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
     reader = stream.Prefetcher(gen, maxsize=8,
                                pin=torch.device(device).type == "cuda")
     slam = None
+    visualizer = None
+    n_seen = 0
     for t, image, depth, mask, intrinsics in reader:
         if slam is None:
             ht, wd, _ = image.shape
             slam = DPVO(cfg, network, ht, wd, seed=seed, device=device,
-                        sync_mode=sync_mode)
-        slam(t, image, intrinsics, depth=depth, mask=mask)
+                        sync_mode=sync_mode or viz or rerun)
+            if viz or rerun:
+                from .utils.viz import Visualizer
+                visualizer = Visualizer(slam, path=f"{path}/viz",
+                                        use_rerun=rerun)
+            if resume:
+                load_slam(slam, resume)
+                print(f"resumed from {resume} at frame {slam.counter}")
+        n_seen += 1
+        if resume and n_seen <= slam.counter:
+            continue                     # frames the checkpoint covers
+        if checkpoint_every and slam.counter and \
+                slam.counter % checkpoint_every == 0:
+            save_slam(slam, f"{path}/slam_ckpt")
+        with Timer("SLAM", enabled=timeit,
+                   sync=(lambda: slam.state.poses) if timeit else None):
+            slam(t, image, intrinsics, depth=depth, mask=mask)
+        if visualizer is not None and slam.is_initialized and t % 4 == 0:
+            visualizer.update(image=image)
     if slam is None:
         raise ValueError(f"no frames in {imagedir}")
 
-    slam.refine(12)
-    poses, tstamps = slam.terminate()
+    for _ in range(12):
+        slam.refine(1)
 
+    points, colors = slam.points_and_colors()
+    poses, tstamps = slam.terminate()
+    if timeit:
+        timing_summary()
+
+    Path(path).mkdir(parents=True, exist_ok=True)
+    name = Path(imagedir).stem
+    if save_reconstruction:
+        export.save_ply(Path(path) / f"{name}.ply", points, colors)
+        print(f"Saved {path}/{name}.ply")
     if save_trajectory:
         out = Path(path) / "saved_trajectories"
         out.mkdir(exist_ok=True, parents=True)
-        export.save_trajectory_tum_format(
-            poses, tstamps, out / f"{Path(imagedir).stem}.txt")
-    return poses, tstamps
+        export.save_trajectory_tum_format(poses, tstamps, out / f"{name}.txt")
+    if plot:
+        Path(f"{path}/trajectory_plots").mkdir(exist_ok=True, parents=True)
+        export.plot_trajectory(poses, title=f"DPVO Trajectory for {name}",
+                               filename=f"{path}/trajectory_plots/{name}.pdf")
+    if export_colmap:
+        fx, fy, cx, cy = np.asarray(calib)[:4]
+        export.save_output_for_colmap(
+            f"{path}/colmap_{name}", poses, tstamps, points, colors,
+            fx, fy, cx, cy, slam.ht, slam.wd)
+        with open(f"{path}/config.yaml", "w") as f:
+            f.write(cfg.dump())
+    return poses, tstamps, (points, colors)
 
 
-# the JAX demo's flags the port does not have yet: loop closure (ROADMAP
-# Queue 1 item 12), visualisation and the map's export (item 21), SLAM
-# checkpoints (item 11), timing (item 17)
-_NOT_PORTED = ("viz", "rerun", "loop_enabled", "save_reconstruction",
-               "export_colmap", "plot", "resume", "checkpoint_every",
-               "timeit")
+# the JAX demo's flag the port does not have yet: loop closure (ROADMAP
+# Queue 1 item 12)
+_NOT_PORTED = ("loop_enabled",)
 
 
 def main(argv=None):
@@ -95,8 +141,10 @@ def main(argv=None):
     parser.add_argument("--export_colmap", action="store_true")
     parser.add_argument("--plot", action="store_true")
     parser.add_argument("--set_seed", type=int, default=0)
-    parser.add_argument("--checkpoint_every", type=int, default=0)
-    parser.add_argument("--resume", type=str, default=None)
+    parser.add_argument("--checkpoint_every", type=int, default=0,
+                        help="save the run every N frames")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="resume from a slam_ckpt directory")
     parser.add_argument("--opts", nargs="+", default=[])
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; cuda unless 'cpu' is asked for")
@@ -132,7 +180,11 @@ def main(argv=None):
         stride=args.stride, skip=args.skip, end=args.end, path=args.path,
         save_trajectory=args.save_trajectory, device=args.device,
         seed=args.set_seed, sync_mode=args.sync_mode,
-        depthdir=args.depthdir, maskdir=args.maskdir)
+        depthdir=args.depthdir, maskdir=args.maskdir, timeit=args.timeit,
+        save_reconstruction=args.save_reconstruction,
+        export_colmap=args.export_colmap, plot=args.plot, viz=args.viz,
+        rerun=args.rerun, checkpoint_every=args.checkpoint_every,
+        resume=args.resume)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,8 @@ import torch
 
 from ..ops import lie
 from ..slam import DPVO
-from ..train.synth import _PlaneWorld, _texture, render_sequence
+from ..train.synth import (_PlaneWorld, _pose7, _so3_exp, _texture,
+                           render_sequence)
 from ..utils.config import DPVOConfig
 from . import metrics
 
@@ -62,21 +63,49 @@ def _rotation(q):
         [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
 
 
+def _walk(seed, frames, ht, wd, fx, fy):
+    """`render_sequence`'s world and walk poses [T, 7] (path "walk") with
+    its draws in its order, without rendering the frames."""
+    rng = np.random.default_rng(seed)
+    world = _PlaneWorld(rng, ht, wd, fx, fy, tex_scale=3 + 2 * (frames // 25),
+                        n_planes=3)
+    poses = np.zeros((frames, 7), np.float32)
+    Rk, tk = np.eye(3), np.zeros(3)
+    vel = rng.normal(size=3)
+    vel *= rng.uniform(0.03, 0.1) / np.linalg.norm(vel)
+    for k in range(frames):
+        poses[k] = _pose7(Rk, tk)
+        dR = _so3_exp(rng.normal(0, 0.015, 3))
+        Rk = dR @ Rk
+        tk = dR @ tk + rng.normal(0, 0.03, 3) + vel
+    return world, poses
+
+
 def wild_sequence(seed=0, frames=40, ht=384, wd=512, fx=320.0, fy=320.0,
-                  path="walk"):
+                  path="walk", stride=1):
     """The wild-video input over `render_sequence`'s world and trajectory:
     each frame rendered with an independently moving occluder disc
     (`_PlaneWorld.render(occ=)`, which gives the mask: True = static),
     and the world's full-resolution metric depth (`_PlaneWorld._surface`)
     as the depth prior. The disc rides 1.4 units in front of the camera,
     15% of the view's width in radius, and drifts across the view.
+
+    stride: the sequence of frames * stride steps (its world, walk and
+    occluder drift) of which every stride-th frame is rendered, so
+    `wild_sequence(frames=F, stride=s)` equals `wild_sequence(frames=F * s)`
+    at frames 0, s, 2s, ...: stride times the motion per frame.
     Returns (images [T, H, W, 3] uint8, poses_w2c [T, 7], intrinsics [4],
     depths [T, H, W] fp32, masks [T, H, W] bool)."""
-    _, poses, intr = render_sequence(seed, frames=frames, ht=ht, wd=wd,
-                                     fx=fx, fy=fy, path=path)
-    # the same world: render_sequence draws it first from this seed
-    world = _PlaneWorld(np.random.default_rng(seed), ht, wd, fx, fy,
-                        tex_scale=3 + 2 * (frames // 25), n_planes=3)
+    steps = frames * stride
+    if path == "walk":
+        world, poses = _walk(seed, steps, ht, wd, fx, fy)
+    else:
+        _, poses, _ = render_sequence(seed, frames=steps, ht=ht, wd=wd,
+                                      fx=fx, fy=fy, path=path)
+        # the same world: render_sequence draws it first from this seed
+        world = _PlaneWorld(np.random.default_rng(seed), ht, wd, fx, fy,
+                            tex_scale=3 + 2 * (steps // 25), n_planes=3)
+    poses = poses[::stride].copy()
     rng = np.random.default_rng(seed + 1)
     zo = 1.4
     span = zo / fx * wd
@@ -84,17 +113,17 @@ def wild_sequence(seed=0, frames=40, ht=384, wd=512, fx=320.0, fy=320.0,
     start = np.array([rng.uniform(-0.2, 0.2) * span,
                       rng.uniform(-0.1, 0.1) * span, zo])
     drift = np.array([rng.uniform(-0.8, 0.8), rng.uniform(-0.4, 0.4), 0.0])
-    drift *= span / max(frames, 1)
+    drift *= span / max(steps, 1)
     tex = _texture(rng, 48, 48, octaves=3)
     images = np.zeros((frames, ht, wd, 3), np.uint8)
     depths = np.zeros((frames, ht, wd), np.float32)
     masks = np.zeros((frames, ht, wd), bool)
     for k in range(frames):
         R, t = _rotation(poses[k, 3:]), poses[k, :3].astype(np.float64)
-        centre = -R.T @ t + start + k * drift
+        centre = -R.T @ t + start + k * stride * drift
         images[k], _, masks[k] = world.render(R, t, occ=(centre, rad, tex))
         depths[k] = world._surface(R, t, world.rays)[1]
-    return images, poses, intr, depths, masks
+    return images, poses, world.intrinsics(), depths, masks
 
 
 def run(network=None, frames=60, ht=48, wd=64, seed=0, probe_stub=True,

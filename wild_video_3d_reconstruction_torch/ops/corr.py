@@ -10,8 +10,8 @@ over a (2R+2)x(2R+2) window (zero outside the map), blended bilinearly to
 (dx, dy, pi, pj), levels stacked last, [E, 882] for R = 3 and 2 levels.
 
   * `patch_corr_pyramid`: the plain version (gather + einsum, chunked over
-    edges), counterpart of the JAX package's `ops/corr.py`. It computes in
-    fp32 from the stored feature values.
+    the valid edges), counterpart of the JAX package's `ops/corr.py`. It
+    computes in fp32 from the stored feature values.
   * `corr_lookup`: the wrapper the SLAM path calls. On CPU tensors it runs
     the plain version; on CUDA tensors it launches the exact Hopper
     correlation body of `csrc/corr_box.cu` (both pyramid levels in one
@@ -41,7 +41,7 @@ BOX = 12               # csrc/corr_box.cu: staging capacity, positions a side
 COORD_LIM = 1e6        # coordinates are clamped here before floor
 
 
-def _corr_level_chunk(gmap, fmap_flat, H, W, radius, coords, kk, jj, valid):
+def _corr_level_chunk(gmap, fmap_flat, H, W, radius, coords, kk, jj):
     e, P = coords.shape[0], coords.shape[1]
     D = 2 * radius + 2
     C = gmap.shape[1]
@@ -59,8 +59,11 @@ def _corr_level_chunk(gmap, fmap_flat, H, W, radius, coords, kk, jj, valid):
             (xs[..., None, :] >= 0) & (xs[..., None, :] < W))
     flat = (jj.long() * (H * W))[:, None, None, None, None] + \
         ys.clamp(0, H - 1)[..., :, None] * W + xs.clamp(0, W - 1)[..., None, :]
-    win = fmap_flat[flat.reshape(-1)].reshape(e, P * P, D * D, C).float()
-    g = gmap[kk.long()].permute(0, 2, 3, 1).reshape(e, P * P, C, 1).float()
+    # index_select: the same rows as advanced indexing, in less time
+    win = torch.index_select(fmap_flat, 0, flat.reshape(-1)) \
+        .reshape(e, P * P, D * D, C).float()
+    g = torch.index_select(gmap, 0, kk.long()).permute(0, 2, 3, 1) \
+        .reshape(e, P * P, C, 1).float()
     c_full = torch.matmul(win, g).reshape(e, P, P, D, D)
     c_full = torch.where(in_b, c_full, 0.0)
 
@@ -71,7 +74,6 @@ def _corr_level_chunk(gmap, fmap_flat, H, W, radius, coords, kk, jj, valid):
            + dxe * (1 - dye) * c_full[..., :d, 1:]
            + (1 - dxe) * dye * c_full[..., 1:, :d]
            + dxe * dye * c_full[..., 1:, 1:])             # [e,P,P,dy,dx]
-    out = torch.where(valid[:, None, None, None, None] != 0, out, 0.0)
     return out.permute(0, 4, 3, 1, 2)                      # (dx, dy, pi, pj)
 
 
@@ -81,15 +83,17 @@ def patch_corr_level(gmap, fmap, coords, kk, jj, radius=RADIUS, valid=None,
     coords [E, P, P, 2] at this level's scale -> [E, 2R+1, 2R+1, P, P]."""
     E = coords.shape[0]
     F, H, W, C = fmap.shape
-    valid = torch.ones(E, device=coords.device) if valid is None else \
-        valid.float()
+    d = 2 * radius + 1
+    out = coords.new_zeros((E, d, d) + tuple(coords.shape[1:3]))
+    # invalid rows are zero: only the valid ones are computed
+    rows = torch.arange(E, device=coords.device) if valid is None else \
+        torch.nonzero(valid).reshape(-1)
     fmap_flat = fmap.reshape(F * H * W, C)
-    outs = [_corr_level_chunk(gmap, fmap_flat, H, W, radius,
-                              coords[s:s + chunk], kk[s:s + chunk],
-                              jj[s:s + chunk], valid[s:s + chunk])
-            for s in range(0, E, chunk)]
-    return torch.cat(outs) if outs else coords.new_zeros(
-        (0, 2 * radius + 1, 2 * radius + 1) + tuple(coords.shape[1:3]))
+    for s in range(0, rows.shape[0], chunk):
+        r = rows[s:s + chunk]
+        out[r] = _corr_level_chunk(gmap, fmap_flat, H, W, radius, coords[r],
+                                   kk[r], jj[r])
+    return out
 
 
 def patch_corr_pyramid(gmap, pyramid, coords, kk, jj, radius=RADIUS,

@@ -88,6 +88,15 @@ def transform(poses, patches, intrinsics, ii, jj, kk, depth=False,
     return x1
 
 
+def point_cloud(poses, patches, intrinsics, ix):
+    """Patches lifted to homogeneous world points [Nk, P, P, 4]
+    (camera-to-world): divide xyz by the 4th (inverse-depth) component
+    for metric points."""
+    X0 = iproj(patches, intrinsics[ix])
+    Ginv = lie.se3_inv(poses[ix])
+    return lie.se3_act4(Ginv[:, None, None, :], X0)
+
+
 def flow_mag(poses, patches, intrinsics, ii, jj, kk, beta=0.3):
     """Blended full / translation-only flow magnitude [E, P, P]."""
     coords0 = transform(poses, patches, intrinsics, ii, ii, kk)

@@ -15,8 +15,15 @@ Counterpart of the JAX package's `slam/dpvo.py`:
               K at a time, a change of input signature (depth prior,
               mask) flushing the frames before it
   terminate   `_replay_log` turns the event log into the host bookkeeping
-              (timestamps, the dropped-frame delta chain), then the full
-              trajectory through the delta chain, camera-to-world
+              (timestamps, the dropped-frame delta chain); global BA over
+              every keyframe when ENABLE_GLOBAL_BA is set
+              (`slam/global_ba.py`); then the full trajectory through the
+              delta chain, camera-to-world (`trajectory`)
+
+After a run (or between frames) the map and its diagnostics come from the
+current state: `points_and_colors`, `normalize`, `geo_consistency_check`,
+`save_inlier_ratio_record`, `terminate_keyframe`, `debug_match_figure`.
+A run is saved and resumed between frames by `slam/checkpoint.py`.
 
 `sync_mode=True` is the JAX package's synchronous path instead of the
 steady one: `steps.track_step` eagerly, then the keyframe decision on the
@@ -35,26 +42,28 @@ matches it, and its tests assert that they are there.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from ..models.convert import jax_params_to_torch, load_reference_checkpoint
 from ..models.vonet import VONet, init_vonet
 from ..ops import lie
+from ..ops import projective as pops
 from ..utils.config import DPVOConfig
 from . import steps
+from .global_ba import run_global_ba
 from .graphs import StepRunner, check_faults
 from .state import WARMUP, SLAMState, init_state
 
 
 # Config values whose behaviour the JAX package has and the port does not
-# yet: (key, its default, the ROADMAP Queue 1 item that ports it).
-# USE_DISTANCE_EDGES is read only by global BA (JAX `slam/global_ba.py:70`),
-# so ENABLE_GLOBAL_BA's check covers it. Keys that change no result stay
-# accepted: PIPELINE_CHUNK and EDGE_TIERS change how the steady frames are
-# dispatched, PALLAS_CORR and PALLAS_HYBRID_BUDGET nothing.
-NOT_PORTED = (("ENABLE_GLOBAL_BA", False, 11),
-              ("loop_enabled", False, 12))
+# yet: (key, its default, the ROADMAP Queue 1 item that ports it). Keys
+# that change no result stay accepted: PIPELINE_CHUNK and EDGE_TIERS
+# change how the steady frames are dispatched, PALLAS_CORR and
+# PALLAS_HYBRID_BUDGET nothing.
+NOT_PORTED = (("loop_enabled", False, 12),)
 
 
 def _check_ported(cfg):
@@ -288,9 +297,9 @@ class DPVO:
         t0, dP = self.delta[t]
         return lie.se3_mul(dP, self.get_pose(traj, t0))
 
-    def terminate(self):
-        """Camera-to-world poses [T, 7] of every input frame (numpy) and
-        their timestamps."""
+    def trajectory(self):
+        """Camera-to-world poses [T, 7] of every input frame (numpy), the
+        dropped frames through the delta chain, and their timestamps."""
         self._replay_log()
         poses = self.state.poses[:self.n_host].float().cpu()
         traj = {int(self.tstamps[i]): poses[i] for i in range(self.n_host)}
@@ -298,3 +307,135 @@ class DPVO:
                            for t in range(self.counter)])
         out = lie.se3_inv(out)
         return out.numpy(), np.array(self.tlist, dtype=np.float64)
+
+    def terminate(self):
+        """Global BA over every keyframe when ENABLE_GLOBAL_BA is set,
+        then `trajectory()`."""
+        self._replay_log()
+        if self.cfg.ENABLE_GLOBAL_BA:
+            run_global_ba(self.cfg, self)
+        return self.trajectory()
+
+    # ------------------------------------------------------------ the map
+    def points_and_colors(self):
+        """The live map: world points [K, 3] and their RGB colours [K, 3]
+        uint8 (numpy), recomputed from the current poses and depths; per
+        frame only the patches whose inverse depth lies within (1, 4)
+        times the frame's median."""
+        self._replay_log()
+        n, M = self.n, self.M
+        m = n * M
+        pts = steps.compute_points(self.cfg, self.state)[:m]
+        clr = self.state.colors.reshape(-1, 3)[:m]
+        d = self.state.patches[:m, 2, 1, 1].reshape(n, M)
+        med = steps._median(d, dim=1)[:, None]
+        sel = ((d > 1.0 * med) & (d < 4.0 * med)).reshape(-1)
+        return pts[sel].cpu().numpy(), clr[sel].cpu().numpy()
+
+    def normalize(self):
+        """Scale the map so that its mean inverse depth is 1 and rebase the
+        trajectory on the first keyframe; the delta chain of the dropped
+        frames is scaled with it."""
+        self._replay_log()
+        st, n, M = self.state, self.n, self.M
+        s = float(st.patches[:n * M, 2].mean())
+        st.patches[:n * M, 2] /= s
+        st.poses[:n, :3] *= s
+        st.poses[:n] = lie.se3_mul(st.poses[:n],
+                                   lie.se3_inv(st.poses[0]).expand(n, 7))
+        for t, (t0, dP) in list(self.delta.items()):
+            dP = dP.clone()
+            dP[:3] *= s
+            self.delta[t] = (t0, dP)
+
+    def geo_consistency_check(self, query_frame, fixed_frame, thresh=4.0):
+        """(query_frame, inlier ratio) of the live edges from query_frame
+        into frames <= fixed_frame: the share whose reprojection lies
+        within thresh pixels of the network's target and inside the image
+        (a margin of one image around it)."""
+        self._replay_log()
+        st = self.state
+        reproj = pops.transform(st.poses, st.patches, st.intrinsics, st.ii,
+                                st.jj, st.kk)[:, 1, 1, :]
+        m = st.valid & (st.ii == query_frame) & (st.jj <= fixed_frame)
+        if not bool(m.any()):
+            return query_frame, 0.0
+        r = torch.linalg.norm(reproj[m] - st.target[m], dim=-1)
+        cx, cy = st.intrinsics[0, 2], st.intrinsics[0, 3]
+        xb = (reproj[m, 0] > -cx) & (reproj[m, 0] < 3 * cx)
+        yb = (reproj[m, 1] > -cy) & (reproj[m, 1] < 3 * cy)
+        return query_frame, float(((r < thresh) & xb & yb).float().mean())
+
+    def save_inlier_ratio_record(self, path):
+        """Write the inlier ratios of the newest keyframes
+        (`inlier_ratio_record.txt`), the keyframes' timestamps
+        (`time_stamp.txt`) and, where matplotlib is installed, a plot of
+        the ratios; returns {timestamp: ratio}."""
+        self._replay_log()
+        os.makedirs(path, exist_ok=True)
+        n = self.n_host
+        record = {}
+        for i in range(max(n - self.cfg.OPTIMIZATION_WINDOW + 2, 1), n + 1):
+            _, ratio = self.geo_consistency_check(i, i - 1)
+            record[int(self.tstamps[min(i, n - 1)])] = ratio
+        with open(f"{path}/inlier_ratio_record.txt", "w") as f:
+            for k, v in record.items():
+                f.write(f"{k} {v}\n")
+        with open(f"{path}/time_stamp.txt", "w") as f:
+            for i in range(n):
+                f.write(f"{int(self.tstamps[i])}\n")
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            plt.plot(list(record), list(record.values()),
+                     label="inlier ratio")
+            plt.xlabel("frame timestamp")
+            plt.ylabel("inlier ratio")
+            plt.savefig(f"{path}/inlier_ratio_record.png")
+            plt.close()
+        except ImportError:
+            pass
+        return record
+
+    def terminate_keyframe(self):
+        """Camera-to-world poses [n, 7] of the keyframes (numpy) and their
+        input timestamps."""
+        self._replay_log()
+        n = self.n_host
+        poses = lie.se3_inv(self.state.poses[:n].float()).cpu().numpy()
+        return poses, self.tstamps[:n].astype(float)
+
+    def debug_match_figure(self, key_idx, query_num=3, save_path=None):
+        """A matplotlib figure of keyframe key_idx's patch centres and their
+        reprojections into each of the query_num keyframes before it,
+        saved to save_path when given."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        self._replay_log()
+        st, M = self.state, self.M
+        coords = pops.transform(st.poses, st.patches, st.intrinsics, st.ii,
+                                st.jj, st.kk)[:, 1, 1, :].cpu().numpy()
+        ii, jj = st.ii.cpu().numpy(), st.jj.cpu().numpy()
+        valid = st.valid.cpu().numpy()
+        key_xy = st.patches[key_idx * M:(key_idx + 1) * M, :2, 1, 1] \
+            .cpu().numpy() * 4
+        fig, axes = plt.subplots(query_num, 1, figsize=(8, 3 * query_num))
+        for a, ax in enumerate(np.atleast_1d(axes)):
+            tgt = key_idx - a - 1
+            sel = valid & (ii == key_idx) & (jj == tgt)
+            pts = coords[sel] * 4
+            ax.scatter(key_xy[:, 0], key_xy[:, 1], c="red", s=8,
+                       label="keyframe patches")
+            ax.scatter(pts[:, 0], pts[:, 1], c="blue", s=8,
+                       label=f"reprojected into kf {tgt}")
+            ax.set_xlim(0, self.wd)
+            ax.set_ylim(self.ht, 0)
+            ax.legend(loc="upper right", fontsize=6)
+        fig.tight_layout()
+        if save_path:
+            fig.savefig(save_path, dpi=120)
+        plt.close(fig)
+        return fig

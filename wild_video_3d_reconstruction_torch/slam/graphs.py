@@ -31,8 +31,9 @@ staged into one pinned buffer and uploaded with one copy per input, then
 each replay is preceded by a device copy of its row into the static
 buffers. A shorter list (a partial tail) goes frame by frame.
 
-CUDA events around each replay record the gap the host leaves on the
-device between two replays (`gaps_ms`), read once both are done.
+CUDA events around each replay record the replay's device time per tier
+(`replay_times`) and the gap the host leaves on the device between two
+replays (`gaps_ms`), read once both are done.
 
 A capture that fails raises; nothing falls back to the eager step. The
 kernel wrappers count launches only when their Python runs, so the
@@ -90,6 +91,7 @@ class StepRunner:
         self.replays = {}           # (tier, signature) -> replays
         self.host_reads = 0         # counter reads between steady frames
         self.gaps = []              # ms on the device between two replays
+        self.replay_times = {}      # (tier, signature) -> ms of each replay
         # True while the eager warm-up before a capture runs (its effects
         # on the state are undone): instrumentation that wraps the steps
         # can skip it
@@ -107,6 +109,7 @@ class StepRunner:
         self._counts_pinned = torch.zeros(4, dtype=torch.long).pin_memory()
         self.pool = torch.cuda.graph_pool_handle()
         self._gap = None            # (end of a replay, start of the next)
+        self._span = None           # (key, start, end) of the last replay
         self._last_end = None
 
     def _shapes(self, sig):
@@ -268,15 +271,21 @@ class StepRunner:
             self._gap = (self._last_end, start)
         self._last_end = torch.cuda.Event(enable_timing=True)
         self._last_end.record()
+        self._span = ((tier, sig), start, self._last_end)
         _native.add_launches(self.graph_launches[tier, sig])
         self._request_counts()
 
     def _take_gap(self):
-        """Record the gap before the last replay (both its events are done
-        once the counters of that replay were read)."""
+        """Record the gap before the last replay and the last replay's
+        time (their events are done once the counters of that replay were
+        read)."""
         if self._gap is not None:
             self.gaps.append(self._gap[0].elapsed_time(self._gap[1]))
             self._gap = None
+        if self._span is not None:
+            key, a, b = self._span
+            self.replay_times.setdefault(key, []).append(a.elapsed_time(b))
+            self._span = None
 
     # -------------------------------------------------------------- capture
     def capture(self, sig):
@@ -314,7 +323,7 @@ class StepRunner:
         """Device-timeline gaps between consecutive replays (ms): the end of
         one replay to the start of the next, the upload of the next frame's
         inputs and the host's work between frames included."""
-        if self._gap is not None:
-            self._gap[1].synchronize()
+        if self._last_end is not None:
+            self._last_end.synchronize()
             self._take_gap()
         return list(self.gaps)

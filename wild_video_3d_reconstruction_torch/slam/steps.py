@@ -10,6 +10,7 @@ Counterpart of the JAX package's `slam/steps.py`:
   update_op           reproject -> correlate -> update operator -> 2
                       Gauss-Newton iterations
   flow_metric         keyframe flow magnitude between two frames
+  compute_points      world points of every patch slot (the map)
   keyframe_shift      keyframe eviction: buffer shift, edge renumbering
   retire_and_compact  age-based edge retirement + stable compaction
   keyframe_and_log    flow metric -> on-device keyframe decision -> event
@@ -492,6 +493,19 @@ def update_op(cfg, net, state: SLAMState, t0, lam=None, n_rows=None,
     state.poses.copy_(poses)
     state.patches.copy_(patches)
     return state
+
+
+def compute_points(cfg, state: SLAMState):
+    """World points [N * M, 3] of every patch slot's centre pixel, computed
+    on demand (`DPVO.points_and_colors`): the steady step keeps no point
+    buffer."""
+    M = cfg.PATCHES_PER_FRAME
+    ix = torch.arange(state.patches.shape[0], device=state.patches.device)
+    pts = pops.point_cloud(state.poses, state.patches, state.intrinsics,
+                           _div(ix, M))
+    pc = pts[:, P // 2, P // 2, :]
+    w = pc[:, 3:]
+    return pc[:, :3] / torch.where(w.abs() > 1e-8, w, 1.0)
 
 
 def flow_metric(cfg, state: SLAMState, i, j, n_rows=None):

@@ -20,6 +20,12 @@ from __future__ import annotations
 import numpy as np
 
 
+# texture rows blended at a time (elementwise, so the result does not
+# depend on it): a walk of hundreds of frames at 384x512 needs textures of
+# 10^8 pixels, whose float64 temporaries would otherwise take tens of GB
+_TEXTURE_ROWS = 512
+
+
 def _texture(rng, h, w, octaves=4):
     """Smooth multi-octave noise texture in [0, 255], [h, w, 3]."""
     img = np.zeros((h, w, 3))
@@ -31,15 +37,17 @@ def _texture(rng, h, w, octaves=4):
         xs = np.linspace(0, small.shape[1] - 1, w)
         y0 = np.clip(ys.astype(int), 0, small.shape[0] - 2)
         x0 = np.clip(xs.astype(int), 0, small.shape[1] - 2)
-        fy = (ys - y0)[:, None, None]
         fx = (xs - x0)[None, :, None]
-        a = small[y0][:, x0]
-        b = small[y0][:, x0 + 1]
-        c = small[y0 + 1][:, x0]
-        d = small[y0 + 1][:, x0 + 1]
-        layer = (1 - fy) * ((1 - fx) * a + fx * b) + \
-            fy * ((1 - fx) * c + fx * d)
-        img += layer / s
+        for r in range(0, h, _TEXTURE_ROWS):
+            yb = y0[r:r + _TEXTURE_ROWS]
+            fy = (ys[r:r + _TEXTURE_ROWS] - yb)[:, None, None]
+            a = small[yb][:, x0]
+            b = small[yb][:, x0 + 1]
+            c = small[yb + 1][:, x0]
+            d = small[yb + 1][:, x0 + 1]
+            layer = (1 - fy) * ((1 - fx) * a + fx * b) + \
+                fy * ((1 - fx) * c + fx * d)
+            img[r:r + _TEXTURE_ROWS] += layer / s
     img -= img.min()
     img /= img.max() + 1e-9
     return (img * 255).astype(np.uint8)

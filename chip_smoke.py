@@ -39,6 +39,18 @@ and read back equal; and the replayed run saved at a steady frame after a
 keep (`slam/checkpoint.py`), resumed in a new DPVO and finished, its
 trajectory bitwise equal to the uninterrupted run's.
 
+Then the loop closure (`loop_multilap`): two laps of a rendered circuit
+(`render_sequence(path="multiloop")`, 96 frames at 384x512) at
+default.yaml with the trained weights, every frame kept, the loop closure
+off (replayed), on (replayed, the VLAD descriptors written inside the
+captured step) and on in `sync_mode`; it fails unless the descriptors
+drained from the card match the same frames' recomputed ones, every frame
+is accounted for once, the trajectories are finite, a candidate reached
+verification, every steady frame replayed, `run_pgo` on the card equals
+the CPU's and 8 frames replay after a PGO write-back; whether a closure
+was applied, the revisit gap and the ATE off and on are printed. The
+scenes' host renders run in worker processes from the start.
+
 The kernel counts include the launches of every graph replay. Each VO run
 also reports the share of its correlation edge-levels that took the
 per-pixel path. Each phase prints one JSON line; the kernel summary and
@@ -48,9 +60,12 @@ result line; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import concurrent.futures
 import faulthandler
+import functools
 import hashlib
 import json
+import multiprocessing
 import os
 import shutil
 import signal
@@ -64,7 +79,13 @@ import numpy as np
 import torch
 
 from wild_video_3d_reconstruction_torch.eval import synth_ate
+from wild_video_3d_reconstruction_torch.eval.loop_ate import revisit_gap_lap
 from wild_video_3d_reconstruction_torch.io import colmap_model, export
+from wild_video_3d_reconstruction_torch.loop import longterm as tlong
+from wild_video_3d_reconstruction_torch.loop import pgo as tpgo
+from wild_video_3d_reconstruction_torch.loop.netvlad import (
+    VLADDescriptor, fit_centers_from_images, vlad_extract)
+from wild_video_3d_reconstruction_torch.models import vonet
 from wild_video_3d_reconstruction_torch.models.convert import \
     load_reference_checkpoint
 from wild_video_3d_reconstruction_torch.ops import _native
@@ -81,6 +102,7 @@ from wild_video_3d_reconstruction_torch.slam import global_ba as tgba
 from wild_video_3d_reconstruction_torch.slam.checkpoint import (load_slam,
                                                                 save_slam)
 from wild_video_3d_reconstruction_torch.slam.graphs import graph_label
+from wild_video_3d_reconstruction_torch.train.synth import render_sequence
 from wild_video_3d_reconstruction_torch.utils.config import (
     DPVOConfig, load_config)
 
@@ -96,12 +118,26 @@ def emit(phase, **kw):
 
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    stop_renders()
     sys.exit(1)
+
+
+# the background renders (`start_renders`): worker processes to stop on
+# every way out
+RENDER_POOL = []
+
+
+def stop_renders():
+    for pool in RENDER_POOL:
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            proc.kill()
+        pool.shutdown(wait=False, cancel_futures=True)
 
 
 def _deadline(signum, frame):
     print(f"chip_smoke: deadline of {DEADLINE_S} s reached; stopping",
           file=sys.stderr, flush=True)
+    stop_renders()
     os._exit(124)
 
 
@@ -140,6 +176,16 @@ WILD_FRAMES = 40
 # (ENABLE_GLOBAL_BA sizes the rings to it).
 KEEP_STRIDE = 4
 KEEP_BUFFER = 64
+# loop_multilap: two laps of render_sequence(path="multiloop"), every frame
+# kept; 96 frames, the least the issue allows: the host renders a 384x512
+# frame in about 0.6 s (56 s for the 96 on the build box's CPU), in a
+# worker process while the earlier phases run. The buffer holds the run
+# and the 8 frames replayed after a PGO write-back.
+MULTILAP_FRAMES = 96
+MULTILAP_LAP = MULTILAP_FRAMES // 2
+MULTILAP_AFTER = 8
+TOL_PGO_CARD_CPU = 1e-4
+TOL_DESC_COS = 0.99
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -1319,6 +1365,256 @@ def phase_slam_tiny(fused=False, variant="x32", corr_kernel="corr_pyramid"):
              f"card and {out['cpu'][2]} on the CPU")
 
 
+def _timed(fn, *a, **kw):
+    """fn(*a, **kw) and its seconds (in a render worker)."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    return out, time.perf_counter() - t0
+
+
+def start_renders():
+    """The scenes' host renders, started at once in worker processes (the
+    host's numpy would otherwise hold the card idle for minutes): the wild
+    walk, its stride-4 keep, the two-lap world. Returns their futures."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    RENDER_POOL.append(pool)
+    wild = functools.partial(synth_ate.wild_sequence, 0, frames=WILD_FRAMES,
+                             ht=HT, wd=WD, fx=320.0, fy=320.0)
+    return {
+        "wild": pool.submit(_timed, wild),
+        "keep": pool.submit(_timed, wild, stride=KEEP_STRIDE),
+        "multilap": pool.submit(_timed, render_sequence, 0,
+                                frames=MULTILAP_FRAMES, ht=HT, wd=WD,
+                                fx=320.0, fy=320.0, path="multiloop",
+                                n_planes=3)}
+
+
+def multilap_config(loop):
+    return load_config(
+        "configs/default.yaml", KEYFRAME_THRESH=0.0,
+        BUFFER_SIZE=MULTILAP_FRAMES + MULTILAP_AFTER + 8,
+        MOTION_PROBE_THRESH=0.0, loop_enabled=loop, LC_INTERVAL=8,
+        LOOP_CLOSE_WINDOW_SIZE=1, LOOP_RETR_THRESH=0.8,
+        LOOP_SKIP_WINDOW=MULTILAP_LAP // 2)
+
+
+def run_multilap(name, scene, net, vlad, loop, sync_mode):
+    """One run over the two laps; returns (slam, record). Steady frames
+    replay CUDA graphs unless sync_mode (no sync-debug mode here: the loop
+    closure reads the host copies of the logs it requested, and its
+    verification reads back by design)."""
+    images, poses_gt, intr = scene
+    cfg = multilap_config(loop)
+    slam = DPVO(cfg, net, HT, WD, seed=0, device=DEV, sync_mode=sync_mode,
+                vlad=vlad)
+    lc = slam.loop_closure
+    candidates = []
+    if lc is not None:
+        detect = lc.retrieval.detect_loop
+
+        def counted(**kw):
+            out = detect(**kw)
+            if out is not None:
+                candidates.append(out)
+            return out
+        lc.retrieval.detect_loop = counted
+    torch.cuda.synchronize()
+    _native.reset_launch_counts()
+    t_start = time.perf_counter()
+    n_steady0 = t_first = None
+    for t, img in enumerate(images):
+        if slam.is_initialized and n_steady0 is None:
+            n_steady0 = t
+        slam(t, img, intr)
+        if n_steady0 == t:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    drained = slam._events_consumed
+    logged = int(slam.state.log_idx)
+    poses, tstamps = slam.terminate()
+    launches = dict(_native.LAUNCHES)
+    if n_steady0 is None:
+        fail(f"{name}: DPVO never initialized")
+    n_timed = MULTILAP_FRAMES - n_steady0 - 1
+    ate, n_aligned, floor = synth_ate.ate_against(poses, tstamps, poses_gt)
+    kept = {int(t) for t in slam.tstamps[:slam.n_host]}
+    dropped = set(slam.delta)
+    rec = dict(
+        config="configs/default.yaml", loop_enabled=loop,
+        sync_mode=sync_mode, frames=MULTILAP_FRAMES, HxW=[HT, WD],
+        lap_frames=MULTILAP_LAP, weights=WEIGHTS,
+        keyframes=slam.n_host, steady_frames=MULTILAP_FRAMES - n_steady0,
+        fps_steady=n_timed / (t_end - t_first), total_s=t_end - t_start,
+        revisit_gap_lap=revisit_gap_lap(poses, tstamps, MULTILAP_LAP),
+        ate_rmse=ate, ate_floor_identity=floor, n_aligned=n_aligned,
+        poses_finite=bool(np.isfinite(poses).all()),
+        frames_accounted_once=kept | dropped == set(range(MULTILAP_FRAMES))
+        and not kept & dropped, launches=launches)
+    if lc is not None:
+        events = [list(e) for e in lc.events]
+        rec.update(
+            descriptors_logged=logged if not sync_mode else 0,
+            descriptors_drained_during_run=drained,
+            retrieval_candidates=[list(c) for c in candidates],
+            closures={k: [e[1:] for e in events if e[0] == k]
+                      for k in ("pre-rejected", "rejected", "consistent",
+                                "applied")},
+            closures_attempted=len(events), measured_sim3=lc.measured,
+            lc_count=lc.lc_count,
+            pgo_seconds=lc.pgo_seconds, lc_sync_s=slam.lc_sync_s)
+    if not sync_mode:
+        runner = slam.runner
+        rec.update(
+            replays_per_tier={graph_label(k): v
+                              for k, v in runner.replays.items()},
+            replay_ms_median_per_tier={
+                graph_label(k): statistics.median(v)
+                for k, v in runner.replay_times.items()},
+            tiers=list(runner.tiers), graphs_captured=len(runner.graphs))
+    emit(name, **rec)
+    if not rec["poses_finite"] or poses.shape != (MULTILAP_FRAMES, 7):
+        fail(f"{name}: trajectory not finite or of the wrong shape")
+    if not rec["frames_accounted_once"]:
+        fail(f"{name}: input frames not accounted for exactly once")
+    if not sync_mode and sum(slam.runner.replays.values()) != \
+            rec["steady_frames"]:
+        fail(f"{name}: {sum(slam.runner.replays.values())} replays for "
+             f"{rec['steady_frames']} steady frames")
+    for k in ("corr_pyramid", "runsum"):
+        if launches[k] <= 0:
+            fail(f"{name}: kernel {k} was not launched")
+    return slam, rec
+
+
+def phase_loop_multilap(scene):
+    """Item 12 on the card: default.yaml at 384x512 with the trained
+    weights over two laps of one circuit, every frame kept; the loop
+    closure off (replayed), on (replayed: the VLAD descriptors written
+    inside the captured step, drained every LC_INTERVAL frames) and on in
+    sync_mode. Gates: descriptors from the card's desc_log against the
+    same frames' recomputed eagerly; frames accounted for once; finite
+    trajectories; a candidate verified; every steady frame replayed with
+    the loop closure on; run_pgo card = CPU; 8 replayed frames after a
+    PGO write-back. Whether a closure is applied is printed, not gated."""
+    images, poses_gt, intr = scene
+    net = load_reference_checkpoint(WEIGHTS, device=DEV)
+    t0 = time.perf_counter()
+    step = MULTILAP_FRAMES / 24
+    centers = fit_centers_from_images(
+        net, [images[int(i * step)] for i in range(24)])
+    vlad = VLADDescriptor(centers=centers)
+    fit_s = time.perf_counter() - t0
+    pgo_calls = []
+    run_pgo = tlong.run_pgo
+
+    def recorded(*a, **kw):
+        pgo_calls.append(a)
+        return run_pgo(*a, **kw)
+
+    tlong.run_pgo = recorded
+    try:
+        off, rec_off = run_multilap("loop_multilap_off", scene, net, None,
+                                    False, False)
+        on, rec_on = run_multilap("loop_multilap_on", scene, net, vlad, True,
+                                  False)
+        on_sync, rec_sync = run_multilap("loop_multilap_on_sync", scene, net,
+                                         vlad, True, True)
+    finally:
+        tlong.run_pgo = run_pgo
+    total = dict.fromkeys(_native.LAUNCHES, 0)
+    for rec in (rec_off, rec_on, rec_sync):
+        for k, v in rec["launches"].items():
+            total[k] += v
+
+    # the descriptors the replayed run drained from desc_log against the
+    # same frames' features recomputed eagerly (the warm-up frames'
+    # descriptors come from the synchronous ingest)
+    lc = on.loop_closure
+    db = lc.retrieval.db
+    cos = []
+    fd = steps.feat_dtype(on.cfg)
+    centers_dev = torch.as_tensor(centers, device=DEV)
+    with torch.no_grad():
+        for n in np.where(db.has)[0]:
+            c = int(on.tstamps[n])
+            if c < on._init_counter:
+                continue
+            fmap = vonet.encode_frame(
+                net, torch.as_tensor(images[c], device=DEV), fd).fmap
+            ref = vlad_extract(fmap.float(), centers_dev).cpu().numpy()
+            d = db.descs[n]
+            cos.append(float(np.dot(ref, d) / np.linalg.norm(ref) /
+                             np.linalg.norm(d)))
+
+    # run_pgo on the card and on the CPU: an applied closure's inputs, else
+    # one revisit pair's ground-truth Sim3 on the replayed run's poses
+    if pgo_calls:
+        args, source = pgo_calls[-1], "an applied closure"
+    else:
+        n = on.n
+        i, j = MULTILAP_LAP + MULTILAP_LAP // 2, MULTILAP_LAP // 2
+        gt = torch.as_tensor(poses_gt)
+        C = lie.se3_to_sim3(lie.se3_mul(gt[j], lie.se3_inv(gt[i])))
+        args = (on.state.poses[:n].float().cpu().numpy(),
+                C[None].numpy(), np.array([i]), np.array([j]))
+        source = f"ground truth of the revisit pair ({i}, {j})"
+    t0 = time.perf_counter()
+    card = tpgo.run_pgo(*args, device=DEV)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = tpgo.run_pgo(*args, device="cpu")
+    pgo_diff = float(np.abs(card - cpu).max())
+
+    # a write-back into the replayed state, then more replayed frames
+    graphs_before = set(on.runner.graphs)
+    replays_before = sum(on.runner.replays.values())
+    lc.apply_pgo_result(card)
+    _native.reset_launch_counts()
+    for t in range(MULTILAP_AFTER):
+        on(MULTILAP_FRAMES + t, images[t], intr)
+    after, _ = on.trajectory()
+    for k, v in _native.LAUNCHES.items():
+        total[k] += v
+    replays_after = sum(on.runner.replays.values()) - replays_before
+    recaptured = set(on.runner.graphs) != graphs_before
+    emit("loop_multilap", frames=MULTILAP_FRAMES, laps=2,
+         fit_centres_s=fit_s,
+         descriptor_cosine_min=min(cos, default=None),
+         descriptors_checked=len(cos), tol_cosine=TOL_DESC_COS,
+         revisit_gap_off=rec_off["revisit_gap_lap"],
+         revisit_gap_on=rec_on["revisit_gap_lap"],
+         revisit_gap_on_sync=rec_sync["revisit_gap_lap"],
+         ate_off=rec_off["ate_rmse"], ate_on=rec_on["ate_rmse"],
+         ate_on_sync=rec_sync["ate_rmse"],
+         ate_floor_identity=rec_off["ate_floor_identity"],
+         fps_steady_off=rec_off["fps_steady"],
+         fps_steady_on=rec_on["fps_steady"],
+         fps_steady_on_sync=rec_sync["fps_steady"],
+         closures_applied=rec_on["lc_count"],
+         closures_applied_sync=rec_sync["lc_count"],
+         pgo_inputs=source, pgo_poses=int(len(args[0])),
+         pgo_card_s=card_s, pgo_card_vs_cpu_max_abs=pgo_diff,
+         tol_pgo=TOL_PGO_CARD_CPU, frames_after_write_back=MULTILAP_AFTER,
+         replays_after_write_back=replays_after,
+         graphs_recaptured=recaptured,
+         poses_finite_after_write_back=bool(np.isfinite(after).all()))
+    if not cos or min(cos) <= TOL_DESC_COS:
+        fail(f"loop_multilap: drained descriptors against recomputed ones: "
+             f"cosine {min(cos, default=None)} over {len(cos)} frames")
+    if not rec_on["closures_attempted"] and not rec_sync["closures_attempted"]:
+        fail("loop_multilap: no candidate reached geometric verification")
+    if not pgo_diff <= TOL_PGO_CARD_CPU:
+        fail(f"loop_multilap: run_pgo on the card and the CPU differ by "
+             f"{pgo_diff}")
+    if replays_after != MULTILAP_AFTER or not np.isfinite(after).all():
+        fail(f"loop_multilap: {replays_after} replays after the write-back, "
+             f"finite poses: {bool(np.isfinite(after).all())}")
+    return total
+
+
 def main():
     signal.signal(signal.SIGALRM, _deadline)
     signal.alarm(DEADLINE_S)
@@ -1328,6 +1624,7 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs a CUDA "
              "card")
     phase_env()
+    renders = start_renders()
     phase_build()
     gen = torch.Generator().manual_seed(0)
     rows = [kernel_corr(gen), kernel_runsum(gen),
@@ -1357,22 +1654,30 @@ def main():
         total[k] += v
     phase_weights()
     t0 = time.perf_counter()
-    wild = synth_ate.wild_sequence(0, frames=WILD_FRAMES, ht=HT, wd=WD,
-                                   fx=320.0, fy=320.0)
+    wild, seconds = renders["wild"].result()
     emit("render", frames=WILD_FRAMES, HxW=[HT, WD], fx=320.0,
-         seconds=time.perf_counter() - t0,
+         seconds=seconds, waited_s=time.perf_counter() - t0,
          masked_share=float(1.0 - wild[4].mean()))
     for phase in (lambda: phase_wild(wild), phase_synth_ate_tiny):
         for k, v in phase().items():
             total[k] += v
     del wild
     t0 = time.perf_counter()
-    keep = synth_ate.wild_sequence(0, frames=WILD_FRAMES, ht=HT, wd=WD,
-                                   fx=320.0, fy=320.0, stride=KEEP_STRIDE)
+    keep, seconds = renders["keep"].result()
     emit("render_keep", frames=WILD_FRAMES, stride=KEEP_STRIDE,
-         HxW=[HT, WD], fx=320.0, seconds=time.perf_counter() - t0,
+         HxW=[HT, WD], fx=320.0, seconds=seconds,
+         waited_s=time.perf_counter() - t0,
          masked_share=float(1.0 - keep[4].mean()))
     for k, v in phase_wild_keep(keep).items():
+        total[k] += v
+    del keep
+    t0 = time.perf_counter()
+    multilap, seconds = renders["multilap"].result()
+    stop_renders()
+    emit("render_multilap", frames=MULTILAP_FRAMES, laps=2,
+         path="multiloop", HxW=[HT, WD], fx=320.0, seconds=seconds,
+         waited_s=time.perf_counter() - t0)
+    for k, v in phase_loop_multilap(multilap).items():
         total[k] += v
     for row in rows:
         row["launches"] = total[row["name"]]

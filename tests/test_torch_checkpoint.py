@@ -7,7 +7,9 @@ package: the same trajectory, timestamps, keyframe drops and state. The
 patch centres and depths are drawn from the state's generator, so the
 resume also restores its state. Three ways through the steady frames:
 the steady step one frame at a time, in chunks of 4 (the save dispatches
-a partial chunk first), and `sync_mode`.
+a partial chunk first), and `sync_mode`. The warm-up and the bootstrap are
+the same in all three, so one run through them is saved once (a module
+fixture) and each case starts from it.
 
 The demo CLI on a tiny image directory with `--save_reconstruction
 --export_colmap --save_trajectory --checkpoint_every 4 --timeit`, then
@@ -32,17 +34,32 @@ from wild_video_3d_reconstruction_torch.utils.config import DPVOConfig
 from test_torch_slam import HT, INTR, TINY, WD, one_thread, synthetic_frames
 
 N, SPLIT = 13, 11
+BOOT = DPVO.WARMUP        # frames through the bootstrap
+
+
+@pytest.fixture(scope="module")
+def bootstrapped(tmp_path_factory):
+    """A run through its warm-up and bootstrap, saved."""
+    path = tmp_path_factory.mktemp("boot")
+    with one_thread():
+        a = DPVO(DPVOConfig(**TINY), network=init_vonet(0), ht=HT, wd=WD,
+                 device="cpu")
+        for t, img in enumerate(synthetic_frames(BOOT)):
+            a(t, img, INTR)
+    assert a.is_initialized and a.counter == BOOT
+    save_slam(a, path)
+    return path
 
 
 @pytest.mark.parametrize("mode", ["steady", "chunk4", "sync"])
-def test_resume_is_bit_exact(tmp_path, mode):
+def test_resume_is_bit_exact(tmp_path, mode, bootstrapped):
     cfg = DPVOConfig(**TINY, PIPELINE_CHUNK=4 if mode == "chunk4" else 1)
     frames = synthetic_frames(N)
     # the same weights; the resumed DPVO's own generator starts elsewhere
     kw = dict(network=init_vonet(0), device="cpu", sync_mode=mode == "sync")
     with one_thread():
-        a = DPVO(cfg, ht=HT, wd=WD, **kw)
-        for t in range(SPLIT):
+        a = load_slam(DPVO(cfg, ht=HT, wd=WD, seed=2, **kw), bootstrapped)
+        for t in range(BOOT, SPLIT):
             a(t, frames[t], INTR)
         save_slam(a, tmp_path / "ckpt")
         b = load_slam(DPVO(cfg, ht=HT, wd=WD, seed=1, **kw),
@@ -118,10 +135,21 @@ def test_demo_outputs_and_resume(imagedir, tmp_path):
         assert got[name] == want[name], name
 
 
-def test_demo_viz_and_plot(imagedir, tmp_path):
+def test_demo_viz_and_plot(imagedir, tmp_path, capsys):
     pytest.importorskip("matplotlib")
-    _demo(imagedir, tmp_path, "--viz", "--plot")
+    _demo(imagedir, tmp_path, "--viz", "--plot", "--loop_enabled")
+    assert "LC COUNT: 0" in capsys.readouterr().out
     assert sorted(p.name for p in (tmp_path / "viz").iterdir())
     assert list((tmp_path / "viz").glob("map_*.ply"))
     assert list((tmp_path / "viz").glob("traj_*.txt"))
     assert (tmp_path / "trajectory_plots" / "images.pdf").is_file()
+
+
+@pytest.mark.parametrize("flags", [("--checkpoint_every", "4"),
+                                   ("--resume", "missing")])
+def test_demo_refuses_checkpoints_with_loop(imagedir, tmp_path, flags):
+    """A loop closure's database and images are not in a checkpoint: the
+    demo refuses the combination before it reads a frame."""
+    with pytest.raises(NotImplementedError, match="loop closure"):
+        _demo(imagedir, tmp_path, "--loop_enabled", *flags)
+    assert not (tmp_path / "slam_ckpt").exists()

@@ -1,9 +1,9 @@
-"""The port's DPVO refuses the config values whose behaviour it does not
-have yet, and accepts those that change no result.
+"""The port's DPVO runs every config value of the JAX package, and accepts
+those that change no result.
 
-The JAX package changes its result for loop_enabled (`demo.py:67`); until
-the port has it, `DPVO(cfg)` raises instead of running as if it were at
-its default. PATCH_SELECTOR: keypoints (`slam/steps.py:87`) and
+loop_enabled: true builds the long-term loop closure (its parity with the
+JAX package is in `tests/test_torch_loop.py`); PATCH_SELECTOR: keypoints
+(`slam/steps.py:87`) and
 ENABLE_GLOBAL_BA (`slam/dpvo.py:555`, with USE_DISTANCE_EDGES and
 DISTANCE_THRESH read only by its global BA) are ported: DPVO runs with
 them (their parity with the JAX package is in
@@ -23,11 +23,34 @@ SMALL = dict(BUFFER_SIZE=32, PATCHES_PER_FRAME=8, REMOVAL_WINDOW=6,
              MEM=12)
 
 
-@pytest.mark.parametrize("key, value", [("loop_enabled", True)])
-def test_unported_config_value_raises(key, value):
-    cfg = DPVOConfig(**SMALL, **{key: value})
-    with pytest.raises(NotImplementedError, match=key):
-        DPVO(cfg, None, 48, 64, device="cpu")
+def test_loop_enabled_constructs_and_terminates():
+    """loop_enabled: true attaches the loop closure, which logs a VLAD
+    descriptor per steady frame (desc_log [LOG_CAP, DESC_DIM]), drains
+    them every LC_INTERVAL frames and commits every keyframe at
+    terminate; a run with it cannot be checkpointed."""
+    from wild_video_3d_reconstruction_torch.slam.checkpoint import save_slam
+
+    cfg = DPVOConfig(**SMALL, loop_enabled=True, LC_INTERVAL=2,
+                     MOTION_PROBE_THRESH=-1.0, MIXED_PRECISION=False)
+    slam = DPVO(cfg, None, 48, 64, device="cpu")
+    assert slam.loop_closure is not None
+    assert tuple(slam.state.desc_log.shape) == (cfg.LOG_CAP, cfg.DESC_DIM)
+    rng = np.random.default_rng(0)
+    big = rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for t in range(14):
+            slam(t, big[2 * t:2 * t + 48, 3 * t:3 * t + 64].copy(),
+                 [40.0, 40.0, 32.0, 24.0])
+        with pytest.raises(NotImplementedError, match="loop closure"):
+            save_slam(slam, "unused")
+        poses, _ = slam.terminate()
+    finally:
+        torch.set_num_threads(n)
+    assert poses.shape == (14, 7) and np.isfinite(poses).all()
+    assert slam._events_consumed == 4
+    assert slam.loop_closure.retrieval.stored[:slam.n_host].all()
 
 
 def test_config_values_that_change_no_result_are_accepted():

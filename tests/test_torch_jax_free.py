@@ -7,7 +7,9 @@ frames on the CPU, through the steady step (chunked) and `sync_mode`,
 with a depth prior and a mask on some frames and with keypoint patches;
 the synthetic world renders and the trajectory metrics score it; a run
 with global BA saves and loads a checkpoint, terminates and writes its
-map as PLY and as a COLMAP model. A
+map as PLY and as a COLMAP model; a run with the loop closure (VLAD
+descriptors from the steady step, the native "dbow" retrieval built from
+`native/graphlib.cpp`, candidates verified) terminates. A
 static scan of the port's sources backs this up for lazy imports inside
 functions: cv2 only inside the readers of `io/stream.py`.
 """
@@ -85,6 +87,19 @@ with tempfile.TemporaryDirectory() as tmp:
     out = export.save_output_for_colmap(tmp + "/colmap", est, tstamps, pts,
                                         clr, 40.0, 40.0, 32.0, 24.0, 48, 64)
     assert len(colmap_model.read_model(out)[1]) == 12
+# the loop closure, with the native retrieval backend
+from wild_video_3d_reconstruction_torch import native
+assert native.neighbors([0, 0], [1, 0])[0].tolist() == [1, -1]
+for backend in ("vlad", "dbow"):
+    lc_cfg = steady.merge_from_dict(dict(
+        loop_enabled=True, LC_INTERVAL=2, PIPELINE_CHUNK=1,
+        LOOP_SKIP_WINDOW=3, LOOP_RETR_THRESH=-1e9, LOOP_CLOSE_WINDOW_SIZE=1,
+        RETRIEVAL_BACKEND=backend))
+    slam = DPVO(lc_cfg, None, 48, 64, device="cpu")
+    for t in range(13):
+        slam(t, images[t], intr)
+    est, _ = slam.terminate()
+    assert est.shape == (13, 7) and slam.loop_closure.retrieval.stored.any()
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in {blocked!r} and sys.modules[k])
 print("LOADED", loaded, len(names))

@@ -105,12 +105,19 @@ def snapshot(state):
     return {k: np.asarray(v) for k, v in state._asdict().items()}
 
 
+def host_array(a):
+    """A snapshot array for torch.from_numpy (whose numpy has no bfloat16:
+    the JAX state's desc_log is bf16, whose values fp32 holds exactly)."""
+    a = np.array(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
 def to_port_state(snap, cfg):
     """A JAX state snapshot as the port's SLAMState (CPU, fp32)."""
     st = tstate.init_state(cfg, HT, WD, feat_dtype=torch.float32)
     for f in dataclasses.fields(st):
         if f.name in snap and f.name not in ("n_frames", "n_edges", "rng"):
-            src = torch.from_numpy(np.array(snap[f.name]))
+            src = torch.from_numpy(host_array(snap[f.name]))
             dst = getattr(st, f.name)
             dst[:src.shape[0]] = src.to(dst.dtype)
     st.n_frames = int(snap["n_frames"])
@@ -491,6 +498,6 @@ def test_demo_cli_writes_trajectory(tmp_path):
     poses, ts = texport.load_trajectory_tum_format(
         tmp_path / "out" / "saved_trajectories" / "images.txt")
     assert poses.shape == (13, 7) and np.isfinite(poses).all()
-    with pytest.raises(NotImplementedError):
-        tdemo.main(["--imagedir", str(imgdir), "--calib", str(calib),
-                    "--loop_enabled", "--device", "cpu"])
+    # the one demo path not ported yet: calibration without --calib
+    with pytest.raises(NotImplementedError, match="calib"):
+        tdemo.main(["--imagedir", str(imgdir), "--device", "cpu"])

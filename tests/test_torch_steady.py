@@ -61,7 +61,8 @@ from wild_video_3d_reconstruction_tpu.utils.config import \
     DPVOConfig as JConfig
 
 from test_torch_slam import (HT, INTR, TINY, TOL_STEP, TOL_TRAJ, WD, _net,
-                             one_thread, run)  # noqa: F401 (the fixture)
+                             host_array, one_thread,
+                             run)  # noqa: F401 (the fixture)
 from test_torch_synth_ate import jax_raw_draws, jax_run
 from test_torch_weights import WEIGHTS, exporter
 
@@ -104,7 +105,7 @@ def port_state(snap, cfg):
         if k in EDGE_KEYS:
             setattr(st, k, torch.from_numpy(np.array(snap[k])).to(dst.dtype))
         elif isinstance(dst, torch.Tensor) and k in snap:
-            src = torch.from_numpy(np.array(snap[k]))
+            src = torch.from_numpy(host_array(snap[k]))
             dst[:src.shape[0]] = src.to(dst.dtype)
     st.counts.zero_()
     st.n_frames = int(snap["n_frames"])

@@ -9,8 +9,13 @@ continues a saved one; `--viz` / `--rerun` log the map as it grows, in
 then writes the outputs asked for: the map as PLY (`--save_reconstruction`),
 the TUM trajectory (`--save_trajectory`), a plot of it (`--plot`, needs
 matplotlib) and a COLMAP model with nerfstudio's `transforms.json`
-(`--export_colmap`). Loop closure and calibration without a calib file
-are not ported yet and raise NotImplementedError when asked for.
+(`--export_colmap`). `--loop_enabled` (or `loop_enabled: true` in the
+config) adds the long-term loop closure, its VLAD centres fitted first on
+24 evenly spaced images of an image directory (the frames then stay in
+pageable host memory: the loop closure keeps its keyframes); it cannot be
+combined with `--checkpoint_every` or `--resume`, which raise before the
+first frame (the JAX checkpoint saves the loop's state). Calibration
+without a calib file is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,13 +37,15 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
         path="./output", save_trajectory=False, device="cuda", seed=0,
         sync_mode=False, depthdir=None, maskdir=None, timeit=False,
         save_reconstruction=False, export_colmap=False, plot=False,
-        viz=False, rerun=False, checkpoint_every=0, resume=None):
+        viz=False, rerun=False, checkpoint_every=0, resume=None,
+        loop_enabled=False):
     """Run VO over the images of `imagedir` (with the depth maps of
     `depthdir` and the masks of `maskdir`) or over the video file
     `imagedir`, and write the outputs asked for under `path`; returns
     (poses c2w [T, 7], tstamps, (points [K, 3], colors [K, 3])).
     sync_mode: the synchronous steady path (`slam.dpvo`), also taken with
-    viz or rerun."""
+    viz or rerun. loop_enabled: the loop closure (also with the config's
+    loop_enabled)."""
     import torch
 
     from .io import export, stream
@@ -48,19 +55,39 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
 
     calib = np.loadtxt(calib, delimiter=" ") if isinstance(calib, str) \
         else calib
+    loop = loop_enabled or cfg.loop_enabled
+    if loop and (checkpoint_every or resume):
+        raise NotImplementedError(
+            "a run with the loop closure cannot be saved or resumed: its "
+            "retrieval database and keyframe images are not part of a "
+            "checkpoint")
+    if loop:
+        # one network for the centre fitting and the run
+        from .models.convert import (jax_params_to_torch,
+                                     load_reference_checkpoint)
+        from .models.vonet import VONet, init_vonet
+        cfg = cfg.merge_from_dict({"loop_enabled": True})
+        network = network if isinstance(network, VONet) else \
+            load_reference_checkpoint(network) if isinstance(network, str) \
+            else init_vonet(seed) if network is None else \
+            jax_params_to_torch(network)
     gen = stream.image_frames(imagedir, depthdir, maskdir, calib, stride,
                               skip, end) if os.path.isdir(imagedir) else \
         stream.video_frames(imagedir, calib, stride, skip)
-    reader = stream.Prefetcher(gen, maxsize=8,
-                               pin=torch.device(device).type == "cuda")
+    reader = stream.Prefetcher(
+        gen, maxsize=8, pin=torch.device(device).type == "cuda" and not loop)
     slam = None
     visualizer = None
     n_seen = 0
     for t, image, depth, mask, intrinsics in reader:
         if slam is None:
             ht, wd, _ = image.shape
+            vlad = None
+            if loop:
+                vlad = _fitted_vlad(cfg, network, imagedir, calib, stride,
+                                    skip, end, device)
             slam = DPVO(cfg, network, ht, wd, seed=seed, device=device,
-                        sync_mode=sync_mode or viz or rerun)
+                        sync_mode=sync_mode or viz or rerun, vlad=vlad)
             if viz or rerun:
                 from .utils.viz import Visualizer
                 visualizer = Visualizer(slam, path=f"{path}/viz",
@@ -113,9 +140,24 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
     return poses, tstamps, (points, colors)
 
 
-# the JAX demo's flag the port does not have yet: loop closure (ROADMAP
-# Queue 1 item 12)
-_NOT_PORTED = ("loop_enabled",)
+def _fitted_vlad(cfg, net, imagedir, calib, stride, skip, end, device):
+    """The loop closure's VLAD centres fitted on the features (of the
+    VONet net) of 24 evenly spaced images of an image directory, or None
+    (default centres) for a video or with an hloc NetVLAD checkpoint."""
+    if cfg.NETVLAD_CHECKPOINT or not os.path.isdir(imagedir):
+        return None
+    from .io import stream
+    from .loop.netvlad import VLADDescriptor, fit_centers_from_images
+
+    files = stream.list_images(imagedir, stride, skip, end)
+    k = min(24, len(files))
+    picks = [files[int(i * len(files) / k)] for i in range(k)]
+    imgs = [im for im in (stream.read_image(f, calib) for f in picks)
+            if im is not None]
+    if not imgs:
+        return None
+    return VLADDescriptor(centers=fit_centers_from_images(
+        net.to(device).eval(), imgs))
 
 
 def main(argv=None):
@@ -154,10 +196,6 @@ def main(argv=None):
                              "shape step (CUDA graph replays on the card)")
     args = parser.parse_args(argv)
 
-    asked = [k for k in _NOT_PORTED if getattr(args, k)]
-    if asked:
-        raise NotImplementedError(
-            f"not ported yet: --{', --'.join(asked)}")
     if args.calib is None:
         raise NotImplementedError("calibration without --calib is not "
                                   "ported yet")
@@ -184,7 +222,7 @@ def main(argv=None):
         save_reconstruction=args.save_reconstruction,
         export_colmap=args.export_colmap, plot=args.plot, viz=args.viz,
         rerun=args.rerun, checkpoint_every=args.checkpoint_every,
-        resume=args.resume)
+        resume=args.resume, loop_enabled=args.loop_enabled)
 
 
 if __name__ == "__main__":

@@ -39,6 +39,20 @@ def list_images(imagedir, stride=1, skip=0, end=None):
     return _globbed(imagedir, IMG_EXTS, skip, end, stride)
 
 
+def read_image(imfile, calib):
+    """One image file as BGR uint8, undistorted when calib [fx, fy, cx,
+    cy, k1, ...] has distortion terms."""
+    import cv2
+
+    calib = _calib(calib)
+    image = cv2.imread(str(imfile), cv2.IMREAD_COLOR)
+    if image is not None and len(calib) > 4:
+        fx, fy, cx, cy = calib[:4]
+        K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+        image = cv2.undistort(image, K, calib[4:])
+    return image
+
+
 def image_frames(imagedir, depthdir=None, maskdir=None, calib=None,
                  stride=1, skip=0, end=None):
     """Yield (t, image BGR u8, depth|None, mask|None, intrinsics[4])."""
@@ -46,7 +60,6 @@ def image_frames(imagedir, depthdir=None, maskdir=None, calib=None,
 
     calib = _calib(calib)
     fx, fy, cx, cy = calib[:4]
-    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
 
     images = _globbed(imagedir, IMG_EXTS, skip, end, stride)
     depths = _globbed(depthdir, ("*.npy",), skip, end, stride) \
@@ -54,9 +67,7 @@ def image_frames(imagedir, depthdir=None, maskdir=None, calib=None,
     masks = _globbed(maskdir, IMG_EXTS, skip, end, stride) if maskdir else None
 
     for t, imfile in enumerate(images):
-        image = cv2.imread(str(imfile), cv2.IMREAD_COLOR)
-        if len(calib) > 4:
-            image = cv2.undistort(image, K, calib[4:])
+        image = read_image(imfile, calib)
         h, w, _ = image.shape
         image = image[:h - h % 16, :w - w % 16]
 

@@ -7,7 +7,9 @@ one `torch.save` of them (the counters `state.counts` and the event log
 come from (`steps.draw_inputs`), and the host bookkeeping of `DPVO`. A
 run resumed from it continues bit for bit: the same draws, the same
 state. The graphs of the steady step are not saved; the resumed run
-captures them again at its first steady frame.
+captures them again at its first steady frame. A run with the loop
+closure is refused: its retrieval database and keyframe images are not
+part of a checkpoint.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ HOST = ("counter", "tlist", "n_host", "parked", "is_initialized",
 def save_slam(slam, path):
     """Write the run of `slam` (a DPVO) to the directory `path`, after
     dispatching its staged frames."""
+    if slam.loop_closure is not None:
+        raise NotImplementedError(
+            "a run with the loop closure cannot be saved: its retrieval "
+            "database and keyframe images are not part of a checkpoint")
     slam._flush_pending()
     state = {f.name: getattr(slam.state, f.name).cpu()
              for f in dataclasses.fields(slam.state) if f.name != "rng"}

@@ -15,10 +15,24 @@ Counterpart of the JAX package's `slam/dpvo.py`:
               K at a time, a change of input signature (depth prior,
               mask) flushing the frames before it
   terminate   `_replay_log` turns the event log into the host bookkeeping
-              (timestamps, the dropped-frame delta chain); global BA over
-              every keyframe when ENABLE_GLOBAL_BA is set
-              (`slam/global_ba.py`); then the full trajectory through the
-              delta chain, camera-to-world (`trajectory`)
+              (timestamps, the dropped-frame delta chain); the loop
+              closure's last attempt; global BA over every keyframe when
+              ENABLE_GLOBAL_BA is set (`slam/global_ba.py`); then the full
+              trajectory through the delta chain, camera-to-world
+              (`trajectory`)
+
+With `loop_enabled` the run carries a `loop/longterm.py`
+LongTermLoopClosure (`loop_closure`). Warm-up frames (and every frame in
+`sync_mode`) hand it their descriptor and image as they are accepted, and
+each frame after them attempts closures. Steady frames write their VLAD
+descriptor into `state.desc_log` inside the replayed step
+(`enable_descriptors`) and leave their image in `_lc_images`; every
+LC_INTERVAL dispatched frames `_lc_sync` requests the newest interval's
+event-log and descriptor rows as a copy into pinned host memory (no wait),
+replays the interval requested the time before into the loop closure's
+callbacks (descriptor, image, evictions, in the order the synchronous path
+gives them), then attempts closures: the host runs one interval behind the
+card, as in the JAX package.
 
 After a run (or between frames) the map and its diagnostics come from the
 current state: `points_and_colors`, `normalize`, `geo_consistency_check`,
@@ -43,10 +57,12 @@ matches it, and its tests assert that they are there.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
 
+from ..loop.longterm import LongTermLoopClosure
 from ..models.convert import jax_params_to_torch, load_reference_checkpoint
 from ..models.vonet import VONet, init_vonet
 from ..ops import lie
@@ -58,35 +74,19 @@ from .graphs import StepRunner, check_faults
 from .state import WARMUP, SLAMState, init_state
 
 
-# Config values whose behaviour the JAX package has and the port does not
-# yet: (key, its default, the ROADMAP Queue 1 item that ports it). Keys
-# that change no result stay accepted: PIPELINE_CHUNK and EDGE_TIERS
-# change how the steady frames are dispatched, PALLAS_CORR and
-# PALLAS_HYBRID_BUDGET nothing.
-NOT_PORTED = (("loop_enabled", False, 12),)
-
-
-def _check_ported(cfg):
-    for key, default, item in NOT_PORTED:
-        value = getattr(cfg, key)
-        if value != default:
-            raise NotImplementedError(
-                f"{key}: {value!r} is not ported yet (ROADMAP Queue 1 item "
-                f"{item}); the port runs only {key}: {default!r}")
-
-
 class DPVO:
     WARMUP = WARMUP
 
     def __init__(self, cfg: DPVOConfig, network=None, ht=480, wd=640,
-                 seed=0, device="cuda", sync_mode=False):
+                 seed=0, device="cuda", sync_mode=False, vlad=None):
         """network: a `VONet`, a path to a DPVO `.pth` checkpoint, the JAX
         package's parameter tree (nested dicts of numpy arrays), or None
         for weights drawn from `seed`. device: "cuda" unless the caller
         asks for the CPU. sync_mode: the synchronous steady path (see the
-        module)."""
-        _check_ported(cfg)
+        module). vlad: the loop closure's `VLADDescriptor` when
+        `loop_enabled` (default: centres drawn from seed 7)."""
         self.cfg = cfg
+        self.seed = seed
         self.ht, self.wd = ht, wd
         self.M = cfg.PATCHES_PER_FRAME
         self.device = torch.device(device)
@@ -117,6 +117,17 @@ class DPVO:
         self._events_consumed = 0     # event-log rows replayed
         self._pending = []            # steady rows awaiting a chunk
         self._pending_sig = None      # their signature (depth, mask)
+        # the loop closure's steady-frame bookkeeping
+        self._lc_images = {}          # input counter -> image
+        self._lc_pending = None       # a request: (first event, rows,
+                                      # descs, event or None)
+        self._lc_req_lo = 0           # first event of the next request
+        self._lc_slot = 0             # pinned buffer of the next request
+        self._lc_host = None          # two pinned (log, desc) buffers
+        self.lc_sync_s = 0.0          # seconds in _lc_sync
+        self.loop_closure = None
+        if cfg.loop_enabled:
+            self.loop_closure = LongTermLoopClosure(cfg, self, vlad=vlad)
 
     @property
     def n(self):
@@ -156,9 +167,14 @@ class DPVO:
             self._pending_sig = sig
             self._pending.append(steps.FrameInputs(
                 np.asarray(image), intr_np, fac, *draws, depth, mask))
+            if self.loop_closure is not None:
+                self._lc_images[self.counter] = np.asarray(image)
             self.counter += 1
             if len(self._pending) >= self.runner.chunk:
                 self._flush_pending()
+            if self.loop_closure is not None and self._events_dispatched \
+                    - self._lc_req_lo >= self.cfg.LC_INTERVAL:
+                self._lc_sync()
             return
 
         if self.n + 1 >= cfg.BUFFER_SIZE:
@@ -190,6 +206,9 @@ class DPVO:
         # accept the frame
         self.state.n_frames.add_(1)
         self.n_host += 1
+        lc = self.loop_closure
+        if lc is not None:
+            lc(np.asarray(image), self.n_host - 1, self.counter - 1)
         if not self.is_initialized:
             self._check_room()
             self.state = steps.append_edges(cfg, self.state)
@@ -209,6 +228,8 @@ class DPVO:
             # pre-initialization: the second append of the same factors
             self._check_room()
             self.state = steps.append_edges(cfg, self.state)
+        if lc is not None and self.is_initialized:
+            lc.attempt_loop_closure(self.n_host)
 
     def _check_room(self):
         """Raise unless one more append_edges fits the edge table (a host
@@ -233,6 +254,8 @@ class DPVO:
             self.tstamps[k:self.n_host] = \
                 self.tstamps[k + 1:self.n_host + 1].copy()
             self.n_host -= 1
+            if self.loop_closure is not None:
+                self.loop_closure.keyframe(k)
         else:
             pose_k = self.state.poses[self.n_host - cfg.KEYFRAME_INDEX]
             if bool(torch.isnan(pose_k).any()):
@@ -247,15 +270,23 @@ class DPVO:
             self.runner.run(rows)
             self._events_dispatched += len(rows)
 
-    def _replay_events(self, rows, first_event):
+    def _replay_events(self, rows, first_event, descs=None):
         """Replay event-log rows [first_event, first_event + len) into the
         host bookkeeping: timestamps, the eviction delta chain, NaN
-        warnings."""
+        warnings; with the loop closure, each frame's descriptor (descs,
+        the desc_log rows) and image, then its eviction, in the order the
+        synchronous path hands them over."""
+        if first_event != self._events_consumed:
+            raise RuntimeError(f"event-log rows from {first_event} replayed "
+                               f"after {self._events_consumed}")
+        lc = self.loop_closure
         n = self.n_host
         for e in range(rows.shape[0]):
             c = self._init_counter + first_event + e
             self.tstamps[n] = c
             n += 1
+            if lc is not None:
+                lc.add_descriptor(n - 1, descs[e], self._lc_images.pop(c))
             removed, dP, nan_flag = rows[e, 0], rows[e, 1:8], rows[e, 9]
             if removed > 0.5:
                 k = n - self.cfg.KEYFRAME_INDEX
@@ -264,6 +295,8 @@ class DPVO:
                     dP.astype(np.float32)))
                 self.tstamps[k:n - 1] = self.tstamps[k + 1:n].copy()
                 n -= 1
+                if lc is not None:
+                    lc.keyframe(k)
             if nan_flag > 0.5:
                 print(f"WARNING: NaN pose detected near input frame {c}")
         self.n_host = n
@@ -271,17 +304,86 @@ class DPVO:
 
     def _replay_log(self):
         """Bring the host bookkeeping up to the device event log: flush a
-        pending chunk, fetch the rows not replayed yet, replay them. Raises
-        if a steady frame broke the run-sum SoftAgg's segment rule."""
+        pending chunk, consume the loop closure's requested interval, fetch
+        the rows not replayed yet, replay them. Raises if a steady frame
+        broke the run-sum SoftAgg's segment rule."""
         if self.sync_mode or self._init_counter is None:
             return
         self._flush_pending()
         self.runner.invalidate()
         _, _, total, faults = self.runner.counts()
         check_faults(faults)
+        if self._lc_pending is not None:
+            request, self._lc_pending = self._lc_pending, None
+            self._lc_consume(request)
         lo = self._events_consumed
         if total > lo:
-            self._replay_events(self.state.log[lo:total].cpu().numpy(), lo)
+            descs = self.state.desc_log[lo:total].float().cpu().numpy() \
+                if self.loop_closure is not None else None
+            self._replay_events(self.state.log[lo:total].cpu().numpy(), lo,
+                                descs)
+        self._lc_req_lo = self._events_consumed
+
+    # ------------------------------------------------------- loop closure
+    def enable_descriptors(self, vlad):
+        """Have the steady step log each frame's VLAD descriptor with
+        vlad's centres (`LongTermLoopClosure` calls it outside sync_mode),
+        growing desc_log to [LOG_CAP, vlad.dim] if it is smaller."""
+        if self.is_initialized:
+            raise RuntimeError("enable_descriptors after the bootstrap: the "
+                               "steady frames before it have no descriptor")
+        st = self.state
+        if tuple(st.desc_log.shape) != (self.cfg.LOG_CAP, vlad.dim):
+            st.desc_log = torch.zeros((self.cfg.LOG_CAP, vlad.dim),
+                                      dtype=torch.bfloat16,
+                                      device=self.device)
+        self.runner.set_centers(vlad.centers)
+
+    def _lc_request(self, lo, hi):
+        """Event-log rows [lo, hi) and their descriptors on their way to
+        the host, without waiting: copies into one of two pinned buffers
+        queued after the work so far, and the event that marks them done
+        (on the card); plain copies (on the CPU)."""
+        st = self.state
+        if not self.runner.graphed:
+            return lo, st.log[lo:hi].clone(), st.desc_log[lo:hi].clone(), \
+                None
+        K = hi - lo
+        if self._lc_host is None or self._lc_host[0][0].shape[0] < K:
+            self._lc_host = [(torch.empty((K, st.log.shape[1]),
+                                          pin_memory=True),
+                              torch.empty((K, st.desc_log.shape[1]),
+                                          dtype=st.desc_log.dtype,
+                                          pin_memory=True))
+                             for _ in range(2)]
+        log_h, desc_h = self._lc_host[self._lc_slot]
+        self._lc_slot ^= 1
+        log_h[:K].copy_(st.log[lo:hi], non_blocking=True)
+        desc_h[:K].copy_(st.desc_log[lo:hi], non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return lo, log_h[:K], desc_h[:K], ready
+
+    def _lc_consume(self, request):
+        """Replay a requested interval (once its copy is done) into the
+        host bookkeeping and the loop closure."""
+        lo, rows, descs, ready = request
+        if ready is not None:
+            ready.synchronize()
+        self._replay_events(rows.numpy(), lo, descs.float().numpy())
+
+    def _lc_sync(self):
+        """Every LC_INTERVAL dispatched steady frames: request the newest
+        interval, consume the one requested before, attempt closures."""
+        t0 = time.perf_counter()
+        lo = self._lc_req_lo
+        prev = self._lc_pending
+        self._lc_pending = self._lc_request(lo, lo + self.cfg.LC_INTERVAL)
+        self._lc_req_lo = lo + self.cfg.LC_INTERVAL
+        if prev is not None:
+            self._lc_consume(prev)
+            self.loop_closure.attempt_loop_closure(self.n_host)
+        self.lc_sync_s += time.perf_counter() - t0
 
     def refine(self, iterations=12):
         """Final refinement updates over the optimization window."""
@@ -309,9 +411,11 @@ class DPVO:
         return out.numpy(), np.array(self.tlist, dtype=np.float64)
 
     def terminate(self):
-        """Global BA over every keyframe when ENABLE_GLOBAL_BA is set,
-        then `trajectory()`."""
+        """The loop closure's last attempt, global BA over every keyframe
+        when ENABLE_GLOBAL_BA is set, then `trajectory()`."""
         self._replay_log()
+        if self.loop_closure is not None:
+            self.loop_closure.terminate(self.n_host)
         if self.cfg.ENABLE_GLOBAL_BA:
             run_global_ba(self.cfg, self)
         return self.trajectory()
@@ -400,8 +504,10 @@ class DPVO:
 
     def terminate_keyframe(self):
         """Camera-to-world poses [n, 7] of the keyframes (numpy) and their
-        input timestamps."""
+        input timestamps, after the loop closure's last attempt."""
         self._replay_log()
+        if self.loop_closure is not None:
+            self.loop_closure.terminate(self.n_host)
         n = self.n_host
         poses = lie.se3_inv(self.state.poses[:n].float()).cpu().numpy()
         return poses, self.tstamps[:n].astype(float)

@@ -40,6 +40,19 @@ kernel wrappers count launches only when their Python runs, so the
 launches each graph recorded at capture (`_native.captured_launches`) are
 added to the counts on each replay.
 
+With the loop closure on (`DPVO.enable_descriptors`), the frame step also
+writes each frame's VLAD descriptor into `state.desc_log`: the VLAD
+centres are a static input of the captured step (`centers`, one device
+tensor at a fixed address), and the graphs that write descriptors are
+keyed apart from those that do not ("vlad" in `graph_label`).
+
+A closure applied between replays (`loop/longterm.py:apply_pgo_result`)
+writes the optimised poses and rescaled depths into the state's own
+tensors in place, on the stream the graphs replay on, so the captured
+graphs stay valid and nothing is captured again: the state's addresses
+never change, and the counters the runner last read are still the
+state's (a closure changes no count).
+
 On the CPU the same `frame_step` (and `steps.chunk_step`) runs eagerly on
 the same inputs, with the same tier choice.
 """
@@ -55,10 +68,12 @@ from . import steps
 from .state import FAULTS, LOG_IDX, N_EDGES, N_FRAMES, SLAMState
 
 def graph_label(key):
-    """A graph's key (tier, (has depth, has mask)) as text: "73728", or
-    "73728/depth+mask" for a signature with inputs."""
-    tier, (depth, mask) = key
-    extra = "+".join(n for n, on in (("depth", depth), ("mask", mask)) if on)
+    """A graph's key (tier, (has depth, has mask, writes descriptors)) as
+    text: "73728", or "73728/depth+mask+vlad" for a signature with
+    inputs."""
+    tier, flags = key
+    extra = "+".join(n for n, on in zip(("depth", "mask", "vlad"), flags)
+                     if on)
     return f"{tier}/{extra}" if extra else str(tier)
 
 
@@ -86,12 +101,14 @@ class StepRunner:
         self.graphed = self.device.type == "cuda"
         self.tiers = steps.edge_tiers(cfg, state.ii.shape[0], self.device)
         self.chunk = max(int(cfg.PIPELINE_CHUNK), 1)
-        self.graphs = {}            # (tier, signature) -> CUDAGraph
-        self.graph_launches = {}    # (tier, signature) -> launches per replay
-        self.replays = {}           # (tier, signature) -> replays
+        self.centers = None         # VLAD centres [K, C] on the device
+        # keyed (tier, signature + (writes descriptors,)), `_key`
+        self.graphs = {}            # key -> CUDAGraph
+        self.graph_launches = {}    # key -> launches per replay
+        self.replays = {}           # key -> replays
         self.host_reads = 0         # counter reads between steady frames
         self.gaps = []              # ms on the device between two replays
-        self.replay_times = {}      # (tier, signature) -> ms of each replay
+        self.replay_times = {}      # key -> ms of each replay
         # True while the eager warm-up before a capture runs (its effects
         # on the state are undone): instrumentation that wraps the steps
         # can skip it
@@ -147,6 +164,15 @@ class StepRunner:
             self._chunk_dev[sig] = self._alloc(sig, self.device,
                                                k=self.chunk)
 
+    def set_centers(self, centers):
+        """Write each steady frame's VLAD descriptor with these centres
+        from now on (graphs of their own signature)."""
+        self.centers = torch.as_tensor(centers, dtype=torch.float32).to(
+            self.device).contiguous()
+
+    def _key(self, tier, sig):
+        return tier, sig + (self.centers is not None,)
+
     # ------------------------------------------------------------ counters
     def counts(self):
         """The state's counters on the host (n_frames, n_edges, log_idx,
@@ -189,7 +215,7 @@ class StepRunner:
                 torch.stack([torch.as_tensor(v, dtype=sd[1]) for v in col])
                 for sd, col in zip(shapes, zip(*rows))))
             steps.chunk_step(self.cfg, self.net, self.state, chunk,
-                             self._tier_of)
+                             self._tier_of, self.centers)
             self.counts_host = None
             return
         self._buffers(sig)
@@ -259,20 +285,20 @@ class StepRunner:
         return dev
 
     def _replay(self, sig):
-        tier = self._checked_tier()     # waits for the last replay
-        if (tier, sig) not in self.graphs:
+        key = self._key(self._checked_tier(), sig)  # waits for the last one
+        if key not in self.graphs:
             self.capture(sig)
         self._take_gap()
         start = torch.cuda.Event(enable_timing=True)
         start.record()
-        self.graphs[tier, sig].replay()
-        self.replays[tier, sig] = self.replays.get((tier, sig), 0) + 1
+        self.graphs[key].replay()
+        self.replays[key] = self.replays.get(key, 0) + 1
         if self._last_end is not None:
             self._gap = (self._last_end, start)
         self._last_end = torch.cuda.Event(enable_timing=True)
         self._last_end.record()
-        self._span = ((tier, sig), start, self._last_end)
-        _native.add_launches(self.graph_launches[tier, sig])
+        self._span = (key, start, self._last_end)
+        _native.add_launches(self.graph_launches[key])
         self._request_counts()
 
     def _take_gap(self):
@@ -304,7 +330,7 @@ class StepRunner:
         try:
             with torch.cuda.stream(side):
                 steps.frame_step(self.cfg, self.net, self.state,
-                                 self.inputs[sig], tier)
+                                 self.inputs[sig], tier, self.centers)
         finally:
             self.warming_up = False
         cur.wait_stream(side)
@@ -315,9 +341,10 @@ class StepRunner:
         with _native.captured_launches() as launches, \
                 torch.cuda.graph(graph, pool=self.pool):
             steps.frame_step(self.cfg, self.net, self.state,
-                             self.inputs[sig], tier)
-        self.graph_launches[tier, sig] = launches
-        self.graphs[tier, sig] = graph
+                             self.inputs[sig], tier, self.centers)
+        key = self._key(tier, sig)
+        self.graph_launches[key] = launches
+        self.graphs[key] = graph
 
     def gaps_ms(self):
         """Device-timeline gaps between consecutive replays (ms): the end of

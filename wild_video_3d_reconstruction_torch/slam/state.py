@@ -16,6 +16,10 @@ needs a count on the host reads it explicitly (`int(state.n_edges)`), and
 `log` [LOG_CAP, 10] fp32 is the JAX package's device event log, one row
 per steady frame: (removed flag, dP [7], flow metric, NaN flag);
 `DPVO._replay_log` turns it into the host bookkeeping at terminate.
+`desc_log` [LOG_CAP, DESC_DIM] bf16 (when `loop_enabled`, else [1, 1]) is
+indexed like `log`: the steady step writes each frame's VLAD descriptor
+there for the loop closure, which `DPVO._lc_sync` drains every
+LC_INTERVAL frames.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ class SLAMState:
     weight: torch.Tensor         # [E, 2] confidences
     counts: torch.Tensor         # [4] int64 n_frames, n_edges, log_idx, faults
     log: torch.Tensor            # [LOG_CAP, 10] fp32 event log
+    desc_log: torch.Tensor       # [LOG_CAP, DESC_DIM] bf16 descriptors
     rng: torch.Generator | None = None   # host draws: patches, depths
 
     # accepted keyframes / used rows of the edge table / next log row /
@@ -117,5 +122,7 @@ def init_state(cfg, ht, wd, feat_dtype=torch.bfloat16, seed=0,
         weight=z(E, 2),
         counts=z(4, dtype=torch.long),
         log=z(cfg.LOG_CAP, LOG_COLS),
+        desc_log=z(*((cfg.LOG_CAP, cfg.DESC_DIM) if cfg.loop_enabled
+                     else (1, 1)), dtype=torch.bfloat16),
         rng=torch.Generator().manual_seed(seed),
     )

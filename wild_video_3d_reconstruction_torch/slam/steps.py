@@ -15,7 +15,9 @@ Counterpart of the JAX package's `slam/steps.py`:
   retire_and_compact  age-based edge retirement + stable compaction
   keyframe_and_log    flow metric -> on-device keyframe decision -> event
                       log row -> retirement
-  frame_step          insert + track + keyframe for one steady-state frame
+  frame_step          insert (+ the frame's VLAD descriptor for the loop
+                      closure) + track + keyframe for one steady-state
+                      frame
   chunk_step          frame_step over K staged frames
   track_step          append + update + flow metric; the host takes the
                       keyframe decision (`DPVO(sync_mode=True)`)
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ba.gauss_newton import BAConfig, _bundle_adjust_impl, _group_by_patch
+from ..loop.netvlad import vlad_extract
 from ..models import vonet
 from ..models.update import update_forward
 from ..models.vonet import DIM, P, RES
@@ -253,8 +256,11 @@ def depth_prior(cfg, state: SLAMState, patches, depth, mask, initialized):
 
 
 def insert_frame(cfg, net, state: SLAMState, inputs: FrameInputs,
-                 initialized=False):
-    """Insert the frame at slot n = state.n_frames (not yet accepted)."""
+                 initialized=False, desc_centers=None):
+    """Insert the frame at slot n = state.n_frames (not yet accepted).
+    With desc_centers [K, C] (the loop closure's VLAD centres) the frame's
+    descriptor goes to desc_log at the next event-log row, with no host
+    read."""
     M = cfg.PATCHES_PER_FRAME
     n = state.n_frames
     dev = state.poses.device
@@ -262,6 +268,10 @@ def insert_frame(cfg, net, state: SLAMState, inputs: FrameInputs,
     image = inputs.image
 
     feats = vonet.encode_frame(net, image, fd)
+    if desc_centers is not None:
+        d = vlad_extract(feats.fmap.float(), desc_centers)
+        state.desc_log.index_copy_(0, state.log_idx.reshape(1),
+                                   d.to(state.desc_log.dtype)[None])
     coords = select_centres(cfg, image, inputs, feats.fmap.shape[0],
                             feats.fmap.shape[1])
     imap_p, gmap_p, clr, patches = vonet.gather_patches(feats, image, coords)
@@ -628,22 +638,26 @@ def track_and_keyframe(cfg, net, state: SLAMState, n_rows):
     return keyframe_and_log(cfg, state, n_rows)
 
 
-def frame_step(cfg, net, state: SLAMState, inputs: FrameInputs, n_rows):
+def frame_step(cfg, net, state: SLAMState, inputs: FrameInputs, n_rows,
+               desc_centers=None):
     """insert + track + keyframe for one steady-state frame, with no host
     read: n_rows is the tier holding the edge count after this frame's
-    append."""
-    state = insert_frame(cfg, net, state, inputs, initialized=True)
+    append; desc_centers (or None) as `insert_frame` takes them."""
+    state = insert_frame(cfg, net, state, inputs, initialized=True,
+                         desc_centers=desc_centers)
     state.n_frames.add_(1)
     return track_and_keyframe(cfg, net, state, n_rows)
 
 
-def chunk_step(cfg, net, state: SLAMState, chunk, tier_of):
+def chunk_step(cfg, net, state: SLAMState, chunk, tier_of,
+               desc_centers=None):
     """`frame_step` over the frames of `chunk` (FrameInputs with a leading
     K axis; None where the signature has no such input) in order;
     tier_of(state) gives each frame's tier."""
     for i in range(chunk.image.shape[0]):
         inputs = FrameInputs(*(None if f is None else f[i] for f in chunk))
-        state = frame_step(cfg, net, state, inputs, tier_of(state))
+        state = frame_step(cfg, net, state, inputs, tier_of(state),
+                           desc_centers)
     return state
 
 

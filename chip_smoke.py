@@ -51,6 +51,20 @@ the CPU's and 8 frames replay after a PGO write-back; whether a closure
 was applied, the revisit gap and the ATE off and on are printed. The
 scenes' host renders run in worker processes from the start.
 
+Then camera initialization and the dense engine, on the same scenes:
+the geometric bootstrap (`bootstrap_wild`: `track_grid` on the wild
+walk's first 8 frames on the card against the CPU,
+`geometric_initialization` with its rotation error, then
+`bootstrap_slam` into a default.yaml DPVO after those frames, its
+written slots equal to `init_from_prior` on a CPU copy, frame 0 the
+identity, the storages unchanged, the run's ATE beside one without it);
+the self-calibration of the stride-4 walk on the card against the CPU
+(`calib_keep`: the same frames, the focal within 1%) and the wild run
+with the estimated intrinsics (`slam_wild_calibrated`, its ATE beside
+the true calibration's); the dense engine (`droid_keep`: `DenseVO` over
+24 frames of the stride-4 walk, ms per frame, peak memory, ATE; card
+against CPU at 96x128 with both flows, each frame from the CPU's state).
+
 The kernel counts include the launches of every graph replay. Each VO run
 also reports the share of its correlation edge-levels that took the
 per-pixel path. Each phase prints one JSON line; the kernel summary and
@@ -74,12 +88,19 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 
+from wild_video_3d_reconstruction_torch.ba import gauss_newton as tba
+from wild_video_3d_reconstruction_torch.eval import droid_harness as tdroid
 from wild_video_3d_reconstruction_torch.eval import synth_ate
 from wild_video_3d_reconstruction_torch.eval.loop_ate import revisit_gap_lap
+from wild_video_3d_reconstruction_torch.init import colmap_init as tci
+from wild_video_3d_reconstruction_torch.init import farneback as tfb
+from wild_video_3d_reconstruction_torch.init import mast3r_init as tmi
+from wild_video_3d_reconstruction_torch.init import prior_init as tpi
 from wild_video_3d_reconstruction_torch.io import colmap_model, export
 from wild_video_3d_reconstruction_torch.loop import longterm as tlong
 from wild_video_3d_reconstruction_torch.loop import pgo as tpgo
@@ -93,6 +114,7 @@ from wild_video_3d_reconstruction_torch.ops import chol as tchol
 from wild_video_3d_reconstruction_torch.ops import corr as tcorr
 from wild_video_3d_reconstruction_torch.ops import lie
 from wild_video_3d_reconstruction_torch.ops import corr_region as tregion
+from wild_video_3d_reconstruction_torch.ops import dense as tdense
 from wild_video_3d_reconstruction_torch.ops.corr import (
     LEVELS, box_plan, corr_lookup, patch_corr_pyramid)
 from wild_video_3d_reconstruction_torch.ops.segment import (
@@ -834,7 +856,8 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
     `inputs` ("d": the depth prior, "m": the mask) and the Sim(3) ATE
     against its ground truth, which must lie below the identity floor.
     The motion probe runs and accepts every frame; its value on each
-    warm-up frame is printed. Returns (launches, poses, dropped frames)."""
+    warm-up frame is printed.
+    Returns (launches, poses, dropped frames, slam, record)."""
     # MOTION_PROBE_THRESH=0: the motion probe runs on every warm-up frame
     # but accepts it (random weights give no meaningful flow; with the
     # trained weights at 384x512 the shipped 2.0 parked the wild walk's
@@ -892,7 +915,8 @@ def phase_slam(name, config, n_frames, expect, fused=False, sync_mode=False,
                 if on_frame is not None:
                     t_hook = time.perf_counter()
                     on_frame(t, slam)
-                    t_hooks += time.perf_counter() - t_hook
+                    if t_first is not None:     # inside the timed frames
+                        t_hooks += time.perf_counter() - t_hook
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode(0)
@@ -1025,7 +1049,8 @@ def phase_wild(wild):
     with the trained weights, the world's depth as the prior and the
     occluder's mask on every frame, replayed and in sync_mode (poses
     bitwise equal: BA's card sums are fp64); then configs/fast.yaml with
-    keypoint patches on the same images, replayed."""
+    keypoint patches on the same images, replayed. Returns (launches, the
+    replayed default.yaml run's record)."""
     expect = ("corr_pyramid", "runsum")
     runs = [phase_slam(name, "configs/default.yaml", WILD_FRAMES, expect,
                        sync_mode=sync, wild=wild, network=WEIGHTS,
@@ -1046,7 +1071,7 @@ def phase_wild(wild):
     for run in runs:
         for k, v in run[0].items():
             launches[k] += v
-    return launches
+    return launches, runs[0][4]
 
 
 class CallCount:
@@ -1365,6 +1390,371 @@ def phase_slam_tiny(fused=False, variant="x32", corr_kernel="corr_pyramid"):
              f"card and {out['cpu'][2]} on the CPU")
 
 
+# ---------------------------------------------------------------------------
+# camera initialization and the dense engine
+# ---------------------------------------------------------------------------
+
+FOCAL_TRUE = 320.0               # the rendered scenes' fx = fy
+CALIB_MAX_FRAMES = 30            # run_colmap_initialization's default
+TOL_CALIB_FOCAL = 0.01           # card against CPU, relative
+BOOT_FRAMES = 8
+TOL_TRACK_OK_SHARE = 0.01        # card against CPU
+TOL_TRACK_PX = 0.05              # median, points tracked on both
+TOL_PRIOR_WRITE = 1e-5           # the card's written slots against the CPU's
+DROID_FRAMES = 24
+DROID_SMALL = 4                  # the card-against-CPU run at 1/4 size
+DROID_SMALL_FRAMES = 8
+# the dense engine, card against CPU (each frame from the CPU's state):
+# the dense BA on the same inputs in fp64 (poses; translations over the
+# scale; read 1.1e-11), the share of flow targets more than 1e-3 px apart
+# (LK's near-singular windows; read 1.0%), and the engines' poses: within
+# TOL_DROID_ENGINE (x the scale for translations) beyond the two fp32
+# solves' distances from the fp64 one (the CPU's read 5.9e-3 on the frame
+# where the engines differ by 5.4e-3)
+TOL_DROID_FP64 = 1e-9
+TOL_DROID_FLOW_SHARE = 0.02
+TOL_DROID_ENGINE = 1e-3
+
+
+def calibrate(frames, device):
+    """The self-calibration's steps (`init/colmap_init.py`) over in-memory
+    frames on `device`: frame selection, fp32 matching with the trained
+    weights, the focal and its confidence. Returns (record, [fx, fy, cx,
+    cy])."""
+    t0 = time.perf_counter()
+    idx = tci.select_frames(frames, max_frames=CALIB_MAX_FRAMES,
+                            device=device)
+    t1 = time.perf_counter()
+    pairs, hw = tci.match_frames([frames[i] for i in idx], WEIGHTS,
+                                 device=device)
+    t2 = time.perf_counter()
+    f, cx, cy = tci.estimate_focal(pairs, hw)
+    conf = tci.calibration_confidence(pairs, f, cx, cy, hw)
+    t3 = time.perf_counter()
+    rec = dict(selected=idx, frames_selected=len(idx), pairs=len(pairs),
+               matches_per_pair=[len(p0) for p0, _ in pairs], focal=f,
+               cx=cx, cy=cy, focal_rel_err=abs(f - FOCAL_TRUE) / FOCAL_TRUE,
+               **conf, select_s=t1 - t0, match_s=t2 - t1,
+               estimate_s=t3 - t2, seconds=t3 - t0)
+    return rec, np.array([f, f, cx, cy])
+
+
+def phase_calib_keep(keep):
+    """Self-calibration of the stride-4 walk's 40 frames on the card and
+    on the CPU: the same frames selected, the card's focal within
+    TOL_CALIB_FOCAL of the CPU's. (The stride-1 walk moves about 5 px a
+    frame: its consecutive pairs leave the Bougnoux focal undetermined,
+    f = 806.7 on the CPU, a flat valley, 15% predicted.) Returns the
+    card's intrinsics."""
+    frames = keep[0]
+    card, intr = calibrate(frames, DEV)
+    cpu, _ = calibrate(frames, "cpu")
+    g = [tfb.bgr_to_gray(torch.as_tensor(frames[k], device=DEV))
+         for k in (0, 1)]
+    fb_ms = time_ms(lambda: tfb.farneback_flow(*g), reps=10)
+    same = card["selected"] == cpu["selected"]
+    rel = abs(card["focal"] - cpu["focal"]) / cpu["focal"]
+    emit("calib_keep", scene=f"wild_sequence(stride={KEEP_STRIDE})",
+         frames=len(frames), HxW=[HT, WD], focal_true=FOCAL_TRUE, card=card,
+         cpu=cpu, same_selection=same, focal_card_vs_cpu_rel=rel,
+         tol=TOL_CALIB_FOCAL, farneback_ms_per_pair_card=fb_ms,
+         farneback_levels=tfb.pyramid_levels(HT, WD) + 1)
+    if not same or not rel <= TOL_CALIB_FOCAL:
+        fail(f"calib_keep: selections equal {same}, focal card "
+             f"{card['focal']} against CPU {cpu['focal']}")
+    return intr
+
+
+def phase_wild_calibrated(wild, intr, true_record):
+    """phase_wild's default.yaml run (depth, mask, replayed) with the
+    estimated intrinsics in place of the true ones; its ATE beside the
+    true calibration's from this call."""
+    est = (wild[0], wild[1], intr, wild[3], wild[4])
+    launches, _, _, _, rec = phase_slam(
+        "slam_wild_calibrated", "configs/default.yaml", WILD_FRAMES,
+        ("corr_pyramid", "runsum"), wild=est, network=WEIGHTS, inputs="dm")
+    emit("wild_calibrated_vs_true", intrinsics_estimated=intr.tolist(),
+         intrinsics_true=np.asarray(wild[2]).tolist(),
+         focal_rel_err=abs(intr[0] - FOCAL_TRUE) / FOCAL_TRUE,
+         ate_rmse_calibrated=rec["ate_rmse"],
+         ate_rmse_true_calibration=true_record["ate_rmse"],
+         ate_floor_identity=rec["ate_floor_identity"])
+    return launches
+
+
+def _rotation_errors_deg(poses_c2w, poses_gt_w2c):
+    """Angle between each estimated rotation from frame 0 and the
+    ground truth's, in degrees."""
+    R = lie.quat_to_matrix(torch.as_tensor(poses_gt_w2c[:, 3:7],
+                                           dtype=torch.float64)).numpy()
+    out = []
+    for k in range(1, len(poses_c2w)):
+        est = np.linalg.inv(poses_c2w[k])[:3, :3]
+        gt = R[k] @ R[0].T
+        c = (np.trace(est @ gt.T) - 1) / 2
+        out.append(float(np.degrees(np.arccos(np.clip(c, -1, 1)))))
+    return out
+
+
+def phase_bootstrap_wild(wild):
+    """The geometric bootstrap on the wild walk's first BOOT_FRAMES
+    frames: `track_grid` on the card against the CPU (ok shares within
+    TOL_TRACK_OK_SHARE, median difference of the points tracked on both
+    under TOL_TRACK_PX), `geometric_initialization` (rotation error
+    against the ground truth printed), then `bootstrap_slam` into a
+    default.yaml DPVO that has taken those frames (images only): the
+    written slots equal to `init_from_prior` on a CPU copy of the state,
+    frame 0 the identity, the state's storages the same; the run goes on
+    over the rest, beside one without the bootstrap."""
+    frames, poses_gt, intr = wild[0], wild[1], np.asarray(wild[2])
+    boot = list(frames[:BOOT_FRAMES])
+    tracks, secs = {}, {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        tracks[dev] = tmi.track_grid(boot, device=dev)
+        secs[dev] = time.perf_counter() - t0
+    (grid, tr_c, ok_c), (_, tr_h, ok_h) = tracks[DEV], tracks["cpu"]
+    share_c, share_h = float(ok_c[1:].mean()), float(ok_h[1:].mean())
+    both = ok_c & ok_h
+    both[0] = False
+    med = float(np.median(np.linalg.norm(tr_c[both] - tr_h[both], axis=-1)))
+    t0 = time.perf_counter()
+    depths, poses_c2w = tmi.geometric_initialization(
+        None, intr, tracks=tracks[DEV], image_size=(HT, WD))
+    geo_s = time.perf_counter() - t0
+    rot = _rotation_errors_deg(poses_c2w, poses_gt[:BOOT_FRAMES])
+    emit("track_grid", frames=BOOT_FRAMES, points=int(grid.shape[0]),
+         ok_share_card=share_c, ok_share_cpu=share_h,
+         median_track_diff_px=med, card_s=secs[DEV], cpu_s=secs["cpu"],
+         geometric_initialization_s=geo_s,
+         rotation_err_deg_per_frame=rot, rotation_err_deg_max=max(rot))
+    if not abs(share_c - share_h) <= TOL_TRACK_OK_SHARE or \
+            not med < TOL_TRACK_PX:
+        fail(f"track_grid: ok shares card {share_c} CPU {share_h}, median "
+             f"track difference {med} px")
+
+    checks = {}
+
+    def bootstrap(t, slam):
+        if t != BOOT_FRAMES - 1:
+            return
+        st = slam.state
+        keys = ("patches", "patches_est", "poses")
+        ptrs = [getattr(st, k).data_ptr() for k in keys]
+        cpu = types.SimpleNamespace(cfg=slam.cfg, state=types.SimpleNamespace(
+            **{k: getattr(st, k).cpu().clone() for k in keys}))
+        t0 = time.perf_counter()
+        d, p = tmi.bootstrap_slam(slam, boot, intr, tracks=tracks[DEV],
+                                  image_size=(HT, WD), device=DEV)
+        torch.cuda.synchronize()
+        checks["bootstrap_slam_s"] = time.perf_counter() - t0
+        tpi.init_from_prior(cpu, d, p, range(BOOT_FRAMES))
+        tpi.anchor_first_frame(cpu)
+        rows = BOOT_FRAMES * slam.M
+        diff = max(float((getattr(st, k)[:n].cpu() - getattr(cpu.state, k)[
+            :n]).abs().max()) for k, n in zip(keys, (rows, rows,
+                                                     BOOT_FRAMES)))
+        ident = float((st.poses[0].cpu() - lie.se3_identity()).abs().max())
+        checks.update(written_vs_cpu_max_abs=diff,
+                      frame0_vs_identity_max_abs=ident,
+                      storages_unchanged=ptrs == [getattr(st, k).data_ptr()
+                                                  for k in keys])
+
+    runs = {}
+    for name, hook in (("slam_wild_bootstrap", bootstrap),
+                       ("slam_wild_images", None)):
+        runs[name] = phase_slam(name, "configs/default.yaml", WILD_FRAMES,
+                                ("corr_pyramid", "runsum"), wild=wild,
+                                network=WEIGHTS, on_frame=hook)
+    emit("bootstrap_wild", frames=BOOT_FRAMES, **checks,
+         tol=TOL_PRIOR_WRITE,
+         ate_rmse_bootstrap=runs["slam_wild_bootstrap"][4]["ate_rmse"],
+         ate_rmse_without=runs["slam_wild_images"][4]["ate_rmse"],
+         ate_floor_identity=runs["slam_wild_images"][4]["ate_floor_identity"])
+    if not checks or not checks["storages_unchanged"] or \
+            not checks["written_vs_cpu_max_abs"] <= TOL_PRIOR_WRITE or \
+            not checks["frame0_vs_identity_max_abs"] <= TOL_PRIOR_WRITE:
+        fail(f"bootstrap_wild: {checks}")
+    launches = dict.fromkeys(_native.LAUNCHES, 0)
+    for run in runs.values():
+        for k, v in run[0].items():
+            launches[k] += v
+    return launches
+
+
+def _pose_diff(a, b):
+    """(largest |a - b| of the quaternions, of the translations)."""
+    d = (a.double().cpu() - b.double().cpu()).abs()
+    return float(d[:, 3:].max()), float(d[:, :3].max())
+
+
+def _dense_ba_orders(inputs, kw, cpu32):
+    """One frame's dense BA on the CPU engine's exact inputs, solved on
+    the card in fp32, in fp64, with the edges in another order and
+    through the one-hot path, and in fp64 on the CPU. Returns each pose
+    difference named."""
+    dev_in = [x.to(DEV) for x in inputs]
+
+    def f64(xs):
+        return [x.double() if x.is_floating_point() else x for x in xs]
+
+    card32 = tdense.dense_ba(*dev_in, **kw)[0]
+    card64 = tdense.dense_ba(*f64(dev_in), **kw)[0]
+    cpu64 = tdense.dense_ba(*f64(inputs), **kw)[0]
+    perm = torch.randperm(inputs[5].shape[0],
+                          generator=torch.Generator().manual_seed(0))
+    permuted = dev_in[:3] + [x[perm.to(DEV)] for x in dev_in[3:]]
+    card_perm = tdense.dense_ba(*permuted, **kw)[0]
+    prob = tdense.dense_problem(*dev_in, stride=kw["stride"])
+    cfg = tba.BAConfig(window=kw["t1"] - kw["t0"],
+                       patch_slots=inputs[1].shape[0] * prob[-1][0].shape[0],
+                       iterations=kw["iterations"], per_patch_cap=None)
+    card_onehot = tba._bundle_adjust_impl(
+        dev_in[0], prob[0], dev_in[2], *prob[1:3], 1e-4, *prob[3:7],
+        kw["t0"], kw["t1"], 0, cfg)[0]
+    return dict(card_vs_cpu=_pose_diff(card32, cpu32),
+                card_vs_cpu_fp64=_pose_diff(card64, cpu64),
+                card_fp32_vs_fp64=_pose_diff(card32, card64),
+                cpu_fp32_vs_fp64=_pose_diff(cpu32, card64),
+                card_edges_permuted=_pose_diff(card_perm, card32),
+                card_one_hot_vs_table=_pose_diff(card_onehot, card32),
+                scale=max(1.0, float(card64[:, :3].abs().max())))
+
+
+def _droid_small(frames, intr, flow):
+    """The dense engine at 1/DROID_SMALL size on the card and on the CPU,
+    each frame started from the CPU engine's state. Per frame: the flow
+    targets card against CPU, the dense BA on the CPU's exact inputs
+    (`_dense_ba_orders`) and the engines' poses. Returns (record, list of
+    gate failures)."""
+    s = DROID_SMALL
+    small = [f.reshape(HT // s, s, WD // s, s, 3).mean((1, 3)).round()
+             .astype(np.uint8) for f in frames]
+    kw = dict(intrinsics=intr / s, buffer=16, stride=8, window=6,
+              kf_thresh=2.4, flow=flow, network=WEIGHTS)
+    card = tdroid.DenseVO(HT // s, WD // s, device=DEV, **kw)
+    cpu = tdroid.DenseVO(HT // s, WD // s, device="cpu", **kw)
+    calls = {}
+    dense_ba = tdroid.dops.dense_ba
+
+    def recorded(*args, **kwargs):
+        out = dense_ba(*args, **kwargs)
+        calls[args[0].device.type] = ([a.clone() for a in args], kwargs,
+                                      out[0].clone())
+        return out
+
+    frames_rec, bad = [], []
+    tdroid.dops.dense_ba = recorded
+    try:
+        for t, img in enumerate(small):
+            card.poses[:cpu.n] = cpu.poses[:cpu.n].to(DEV)
+            card.disps[:cpu.n] = cpu.disps[:cpu.n].to(DEV)
+            calls.clear()
+            card(t, img)
+            cpu(t, img)
+            if card.n != cpu.n:
+                bad.append(f"frame {t}: {card.n} frames kept on the card, "
+                           f"{cpu.n} on the CPU")
+            if t == 0:
+                continue
+            (a_c, _, _), (a_h, kw_h, p_h) = calls[DEV.type], calls["cpu"]
+            on = a_h[4][..., 0] > 0
+            d = (a_c[3].cpu() - a_h[3])[on].abs().amax(-1)
+            rec = dict(frame=t, flow_px_max=float(d.max()),
+                       flow_share_over_1e3_px=float((d > 1e-3).float()
+                                                    .mean()),
+                       **_dense_ba_orders(a_h, kw_h, p_h))
+            n = min(card.n, cpu.n)
+            rec["engine_card_vs_cpu"] = _pose_diff(card.poses[:n],
+                                                   cpu.poses[:n])
+            frames_rec.append(rec)
+    finally:
+        tdroid.dops.dense_ba = dense_ba
+    for rec in frames_rec:
+        t, sc = rec["frame"], rec["scale"]
+        q64, t64 = rec["card_vs_cpu_fp64"]
+        if not max(q64, t64 / sc) <= TOL_DROID_FP64:
+            bad.append(f"frame {t}: dense BA in fp64, card against CPU "
+                       f"{rec['card_vs_cpu_fp64']}")
+        if not rec["flow_share_over_1e3_px"] <= TOL_DROID_FLOW_SHARE:
+            bad.append(f"frame {t}: {rec['flow_share_over_1e3_px']} of the "
+                       f"flow targets differ by more than 1e-3 px")
+        # beyond each side's fp32 rounding, read against the fp64 solution
+        # of the same frame, the engines agree within TOL_DROID_ENGINE
+        (qc, tc), (qh, th) = rec["card_fp32_vs_fp64"], rec["cpu_fp32_vs_fp64"]
+        q, tr = rec["engine_card_vs_cpu"]
+        if not (q <= TOL_DROID_ENGINE + qc + qh and
+                tr <= TOL_DROID_ENGINE * sc + tc + th):
+            bad.append(f"frame {t}: engine poses card against CPU {q} "
+                       f"(quaternions), {tr} (translations), fp32 "
+                       f"distances from the fp64 solution "
+                       f"{rec['card_fp32_vs_fp64']} (card), "
+                       f"{rec['cpu_fp32_vs_fp64']} (CPU)")
+
+    def worst(key):
+        return [max(r[key][k] for r in frames_rec) for k in (0, 1)]
+
+    record = dict(kept=cpu.n, same_keyframes=not any("kept" in b
+                                                     for b in bad),
+                  flow_px_max=max(r["flow_px_max"] for r in frames_rec),
+                  flow_share_over_1e3_px_max=max(
+                      r["flow_share_over_1e3_px"] for r in frames_rec),
+                  scale_max=max(r["scale"] for r in frames_rec),
+                  **{f"{k}_q_t": worst(k) for k in (
+                      "engine_card_vs_cpu", "card_vs_cpu",
+                      "card_vs_cpu_fp64", "card_fp32_vs_fp64",
+                      "cpu_fp32_vs_fp64", "card_edges_permuted",
+                      "card_one_hot_vs_table")},
+                  per_frame=frames_rec)
+    return record, bad
+
+
+def phase_droid_keep(keep):
+    """`DenseVO` (flow "corr", the trained weights, stride 8, window 6,
+    kf_thresh 2.4) over the first DROID_FRAMES frames of the stride-4
+    walk at 384x512 on the card: ATE, floor, frames kept, ms per frame,
+    peak device memory; then card against CPU at 1/4 size over
+    DROID_SMALL_FRAMES frames with both flows, each frame from the CPU
+    engine's state (`_droid_small`): the same keyframe decisions, the
+    dense BA in fp64 on the same inputs within TOL_DROID_FP64, the flow
+    targets, and the engines' poses within TOL_DROID_ENGINE beyond the
+    fp32 rounding of each side."""
+    frames, poses_gt = keep[0][:DROID_FRAMES], keep[1][:DROID_FRAMES]
+    intr = np.asarray(keep[2], np.float32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vo = tdroid.DenseVO(HT, WD, intr, stride=8, window=6, kf_thresh=2.4,
+                        flow="corr", network=WEIGHTS, device=DEV)
+    ms = []
+    for t, img in enumerate(frames):
+        t0 = time.perf_counter()
+        vo(t, img)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    c2w, ts = vo.terminate()
+    ate, n_aligned, floor = synth_ate.ate_against(c2w, ts, poses_gt)
+    small = {flow: _droid_small(frames[:DROID_SMALL_FRAMES], intr, flow)
+             for flow in ("lk", "corr")}
+    emit("droid_keep", frames=DROID_FRAMES, HxW=[HT, WD], flow="corr",
+         stride=8, window=6, kf_thresh=2.4, frames_kept=vo.n,
+         ms_per_frame_median=statistics.median(ms[1:]),
+         ms_per_frame_mean=statistics.mean(ms[1:]), ms_first_two=ms[:2],
+         peak_memory_allocated_bytes=peak, memory_allocated_before=base,
+         ate_rmse=ate, ate_floor_identity=floor, n_aligned=n_aligned,
+         poses_finite=bool(np.isfinite(c2w).all()),
+         card_vs_cpu={f"{flow}_{HT // DROID_SMALL}x{WD // DROID_SMALL}": rec
+                      for flow, (rec, _) in small.items()},
+         tol_engine=TOL_DROID_ENGINE, tol_fp64=TOL_DROID_FP64,
+         tol_flow_share=TOL_DROID_FLOW_SHARE)
+    if not np.isfinite(c2w).all():
+        fail("droid_keep: poses not finite")
+    for flow, (_, bad) in small.items():
+        if bad:
+            fail(f"droid_keep: card against CPU ({flow}): " + "; ".join(bad))
+
+
 def _timed(fn, *a, **kw):
     """fn(*a, **kw) and its seconds (in a render worker)."""
     t0 = time.perf_counter()
@@ -1658,10 +2048,11 @@ def main():
     emit("render", frames=WILD_FRAMES, HxW=[HT, WD], fx=320.0,
          seconds=seconds, waited_s=time.perf_counter() - t0,
          masked_share=float(1.0 - wild[4].mean()))
-    for phase in (lambda: phase_wild(wild), phase_synth_ate_tiny):
+    launches, wild_record = phase_wild(wild)
+    for phase in (lambda: launches, phase_synth_ate_tiny,
+                  lambda: phase_bootstrap_wild(wild)):
         for k, v in phase().items():
             total[k] += v
-    del wild
     t0 = time.perf_counter()
     keep, seconds = renders["keep"].result()
     emit("render_keep", frames=WILD_FRAMES, stride=KEEP_STRIDE,
@@ -1670,6 +2061,11 @@ def main():
          masked_share=float(1.0 - keep[4].mean()))
     for k, v in phase_wild_keep(keep).items():
         total[k] += v
+    intr = phase_calib_keep(keep)
+    for k, v in phase_wild_calibrated(wild, intr, wild_record).items():
+        total[k] += v
+    del wild
+    phase_droid_keep(keep)
     del keep
     t0 = time.perf_counter()
     multilap, seconds = renders["multilap"].result()

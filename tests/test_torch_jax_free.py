@@ -9,7 +9,10 @@ the synthetic world renders and the trajectory metrics score it; a run
 with global BA saves and loads a checkpoint, terminates and writes its
 map as PLY and as a COLMAP model; a run with the loop closure (VLAD
 descriptors from the steady step, the native "dbow" retrieval built from
-`native/graphlib.cpp`, candidates verified) terminates. A
+`native/graphlib.cpp`, candidates verified) terminates; the
+self-calibration's frame selection (`select_frames`: the Farneback flow
+without cv2), the bootstrap's `track_grid` and a 3-frame `DenseVO` (both
+flows) run. A
 static scan of the port's sources backs this up for lazy imports inside
 functions: cv2 only inside the readers of `io/stream.py`.
 """
@@ -100,6 +103,20 @@ for backend in ("vlad", "dbow"):
         slam(t, images[t], intr)
     est, _ = slam.terminate()
     assert est.shape == (13, 7) and slam.loop_closure.retrieval.stored.any()
+# the self-calibration's frame selection (Farneback, no cv2), the
+# geometric bootstrap's LK tracks and the dense engine
+from wild_video_3d_reconstruction_torch.eval.droid_harness import DenseVO
+from wild_video_3d_reconstruction_torch.init.colmap_init import select_frames
+from wild_video_3d_reconstruction_torch.init.mast3r_init import track_grid
+assert len(select_frames(images[:6], device="cpu")) >= 2
+grid, tracks, ok = track_grid(images[:3], device="cpu")
+assert tracks.shape == (3, grid.shape[0], 2) and ok[1:].any()
+for flow in ("lk", "corr"):
+    vo = DenseVO(48, 64, intr, buffer=8, flow=flow, device="cpu")
+    for t in range(3):
+        vo(t, images[t])
+    est, _ = vo.terminate()
+    assert est.shape == (3, 7) and np.isfinite(est).all()
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in {blocked!r} and sys.modules[k])
 print("LOADED", loaded, len(names))

@@ -660,7 +660,8 @@ def test_runsum_replayed_from_a_graph(cuda_device):
 
 def test_depth_mask_step_replayed_matches_sync_mode(cuda_device):
     """The steady step with a depth prior and a mask on every frame
-    (graphs keyed by the (depth, mask) signature) replayed on the card,
+    (graphs keyed by the (depth, mask, descriptors) signature) replayed
+    on the card,
     against `sync_mode` on the card over the same rendered wild frames:
     poses within 1e-4 (chip_smoke.py's TOL_GRAPH_SYNC; BA's card sums are
     fp64, so they read equal there), the same keyframe drops."""
@@ -684,7 +685,85 @@ def test_depth_mask_step_replayed_matches_sync_mode(cuda_device):
                      dict(slam.runner.replays))
     replays = out[False][2]
     assert sum(replays.values()) == 6 and not out[True][2]
-    assert {sig for _, sig in replays} == {(True, True)}
+    assert {sig for _, sig in replays} == {(True, True, False)}
     np.testing.assert_allclose(out[False][0], out[True][0], rtol=0,
                                atol=1e-4)
     assert out[False][1] == out[True][1]
+
+
+def _wild_pair(ht, wd):
+    from wild_video_3d_reconstruction_torch.eval import synth_ate
+
+    images = synth_ate.wild_sequence(0, frames=3, ht=ht, wd=wd,
+                                     fx=320.0 * wd / 512,
+                                     fy=320.0 * wd / 512)[0]
+    return images[0], images[2]
+
+
+@pytest.mark.parametrize("hw", [(96, 128), (384, 512)])
+def test_farneback_on_the_card_matches_the_cpu(cuda_device, hw):
+    """`init/farneback.py` on the card against the CPU: gray bitwise,
+    flow within 1e-3 px (fp32 filter sums in other orders), Laplacian
+    variance within 1e-9 relative."""
+    from wild_video_3d_reconstruction_torch.init import farneback as tfb
+
+    a, b = (torch.from_numpy(x) for x in _wild_pair(*hw))
+    g = [tfb.bgr_to_gray(x) for x in (a, b)]
+    gc = [tfb.bgr_to_gray(x.to(cuda_device)) for x in (a, b)]
+    for x, y in zip(g, gc):
+        assert torch.equal(x, y.cpu())
+    ref = tfb.farneback_flow(*g)
+    got = tfb.farneback_flow(*gc).cpu()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
+    lv, lc = float(tfb.laplacian_var(g[0])), float(tfb.laplacian_var(gc[0]))
+    assert abs(lv - lc) <= 1e-9 * lv
+
+
+def test_lk_and_dense_ba_on_the_card_match_the_cpu(cuda_device):
+    """`track_grid` (LK of a stride-8 grid over 4 frames): ok shares
+    within 1%, the points tracked on both within 1e-3 px (99%; the rest
+    are ill-conditioned windows, where fp32 rounding moves LK by up to
+    0.2 px), and one `dense_ba` call (1e-3: fp32 sums in other orders;
+    1e-9 in fp64) on the card against the CPU."""
+    from wild_video_3d_reconstruction_torch.eval import synth_ate
+    from wild_video_3d_reconstruction_torch.init import mast3r_init as tmi
+    from wild_video_3d_reconstruction_torch.ops import dense as tdense
+    from wild_video_3d_reconstruction_torch.ops import lie as tlie
+
+    frames = list(synth_ate.wild_sequence(0, frames=4, ht=96, wd=128,
+                                          fx=80.0, fy=80.0)[0])
+    _, tr_c, ok_c = tmi.track_grid(frames, device=cuda_device)
+    _, tr_h, ok_h = tmi.track_grid(frames, device="cpu")
+    assert abs(ok_c.mean() - ok_h.mean()) <= 0.01
+    both = ok_c & ok_h
+    err = np.linalg.norm(tr_c[both] - tr_h[both], axis=-1)
+    assert (err <= 1e-3).mean() >= 0.99 and np.median(err) < 1e-4, err.max()
+
+    rng = np.random.default_rng(0)
+    n, ht, wd = 4, 24, 32
+    xi = rng.normal(0, 0.05, (n, 6)).astype(np.float32)
+    xi[0] = 0
+    poses = tlie.se3_exp(torch.from_numpy(xi))
+    disps = torch.from_numpy(rng.uniform(0.2, 1.0, (n, ht, wd)).astype(
+        np.float32))
+    intr = torch.tensor([30.0, 30.0, wd / 2, ht / 2])
+    ii = torch.tensor([0, 1, 1, 2, 2, 3, 0, 3])
+    jj = torch.tensor([1, 0, 2, 1, 3, 2, 2, 1])
+    coords, _ = tdense.projmap(poses, disps, intr, ii, jj)
+    tgt = coords + torch.from_numpy(rng.normal(0, 0.5, coords.shape).astype(
+        np.float32))
+    wgt = torch.from_numpy(rng.uniform(0.2, 1.0, tgt.shape).astype(
+        np.float32))
+    args = (poses, disps, intr, tgt, wgt, ii, jj)
+    p_ref, d_ref = tdense.dense_ba(*args, t0=1, t1=n, stride=4)
+    p_got, d_got = tdense.dense_ba(*(t.to(cuda_device) for t in args),
+                                   t0=1, t1=n, stride=4)
+    torch.testing.assert_close(p_got.cpu(), p_ref, rtol=0, atol=1e-3)
+    torch.testing.assert_close(d_got.cpu(), d_ref, rtol=0, atol=1e-3)
+    # in fp64 the summation orders no longer show: the same function
+    args64 = [t.double() if t.is_floating_point() else t for t in args]
+    p_ref, d_ref = tdense.dense_ba(*args64, t0=1, t1=n, stride=4)
+    p_got, d_got = tdense.dense_ba(*(t.to(cuda_device) for t in args64),
+                                   t0=1, t1=n, stride=4)
+    torch.testing.assert_close(p_got.cpu(), p_ref, rtol=0, atol=1e-9)
+    torch.testing.assert_close(d_got.cpu(), d_ref, rtol=0, atol=1e-9)

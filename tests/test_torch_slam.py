@@ -480,7 +480,8 @@ def test_tum_export_roundtrip(run, tmp_path):
 
 def test_demo_cli_writes_trajectory(tmp_path):
     """The demo's CLI on an image directory, on the CPU: a TUM file with
-    one row per input frame."""
+    one row per input frame, with --calib and without it (the camera
+    calibrated from the images first)."""
     cv2 = pytest.importorskip("cv2")
     imgdir = tmp_path / "images"
     imgdir.mkdir()
@@ -498,6 +499,14 @@ def test_demo_cli_writes_trajectory(tmp_path):
     poses, ts = texport.load_trajectory_tum_format(
         tmp_path / "out" / "saved_trajectories" / "images.txt")
     assert poses.shape == (13, 7) and np.isfinite(poses).all()
-    # the one demo path not ported yet: calibration without --calib
-    with pytest.raises(NotImplementedError, match="calib"):
-        tdemo.main(["--imagedir", str(imgdir), "--device", "cpu"])
+    # without --calib the demo calibrates the camera first
+    tdemo.main(["--imagedir", str(imgdir), "--config", "configs/fast.yaml",
+                "--stride", "1", "--path", str(tmp_path / "auto"),
+                "--save_trajectory", "--device", "cpu", "--buffer", "64",
+                "--opts", *opts])
+    calib = np.loadtxt(tmp_path / "auto" / "estimated_calib.txt")
+    assert calib.shape == (4,) and np.isfinite(calib).all()
+    assert (tmp_path / "auto" / "calib_confidence.json").exists()
+    poses, _ = texport.load_trajectory_tum_format(
+        tmp_path / "auto" / "saved_trajectories" / "images.txt")
+    assert poses.shape == (13, 7) and np.isfinite(poses).all()

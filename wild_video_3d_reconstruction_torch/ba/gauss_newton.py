@@ -13,7 +13,9 @@ integers or 0-d tensors on the device (the steady frame step passes them
 so, as the JAX package traces them): the retractions run over the static
 `window` / `patch_slots` extents with masks, dead slots scattered into a
 sentinel row, so no shape depends on them. `_bundle_adjust_impl` returns
-new pose and patch tensors and leaves its inputs as they were.
+new pose and patch tensors and leaves its inputs as they were. It solves
+in fp32, or in fp64 when the poses come in fp64 (the parity checks take
+that as the exact solution of an ill-conditioned problem).
 """
 
 from __future__ import annotations
@@ -163,18 +165,18 @@ def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
         g = vals[table]                                       # [M, cap, 15]
         accu = g[..., :3].sum(1)
         C, u, touched_cnt = accu[:, 0], accu[:, 1], accu[:, 2]
-        ohi_t = (li_m[table][..., None] == iw).float()
-        ohj_t = (lj_m[table][..., None] == iw).float()
+        ohi_t = (li_m[table][..., None] == iw).to(g.dtype)
+        ohj_t = (lj_m[table][..., None] == iw).to(g.dtype)
         Em_m = (torch.einsum("mcw,mcd->mwd", ohi_t, g[..., 3:9])
                 + torch.einsum("mcw,mcd->mwd", ohj_t, g[..., 9:15]))
         Em = Em_m.permute(1, 2, 0).reshape(6 * W_, M_)
     else:
-        oh_i = ((li[:, None] == iw) & oki[:, None]).float()
-        oh_j = ((lj[:, None] == iw) & okj[:, None]).float()
+        oh_i = ((li[:, None] == iw) & oki[:, None]).to(w.dtype)
+        oh_j = ((lj[:, None] == iw) & okj[:, None]).to(w.dtype)
         tmp = (oh_i[:, :, None] * Eik[:, None, :]
                + oh_j[:, :, None] * Ejk[:, None, :]).reshape(-1, W_ * 6)
         oh_q = ((q[:, None] == torch.arange(M_, device=dev)) &
-                okq[:, None]).float()
+                okq[:, None]).to(w.dtype)
         Em = tmp.T @ oh_q
         CU = oh_q.T @ cu
         C, u, touched_cnt = CU[:, 0], CU[:, 1], CU[:, 2]
@@ -191,7 +193,7 @@ def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
         slots = (m_base + torch.arange(M_, device=dev)).clamp(0, Nk - 1)
         d_est = patches_est[slots, 2, 0, 0]
         d_cur = patches[slots, 2, 0, 0]
-        L = (d_est > 0).float()
+        L = (d_est > 0).to(C.dtype)
         C = C + mu * L
         u = u - mu * L * (d_cur - d_est)
 
@@ -250,12 +252,11 @@ def _bundle_adjust_impl(poses, patches, intrinsics, target, weight, lam,
     tensors on the device.
     Returns (poses, patches).
     """
-    poses = poses.float()
-    patches = patches.float()
-    valid = valid.float()
+    dt = torch.float64 if poses.dtype == torch.float64 else torch.float32
+    poses, patches, valid = poses.to(dt), patches.to(dt), valid.to(dt)
     ii, jj, kk = ii.long(), jj.long(), kk.long()
     if patches_est is not None:
-        patches_est = patches_est.float()
+        patches_est = patches_est.to(dt)
     if patch_table is None and cfg.per_patch_cap is not None:
         q = kk - m_base
         okq = (q >= 0) & (q < cfg.patch_slots)

@@ -14,8 +14,10 @@ config) adds the long-term loop closure, its VLAD centres fitted first on
 24 evenly spaced images of an image directory (the frames then stay in
 pageable host memory: the loop closure keeps its keyframes); it cannot be
 combined with `--checkpoint_every` or `--resume`, which raise before the
-first frame (the JAX checkpoint saves the loop's state). Calibration
-without a calib file is not ported yet and raises NotImplementedError.
+first frame (the JAX checkpoint saves the loop's state). Without
+`--calib` the camera is calibrated from the image directory first
+(`init/colmap_init.py`, with the run's network), writing
+`estimated_calib.txt` and `calib_confidence.json` under `--path`.
 """
 
 from __future__ import annotations
@@ -53,24 +55,24 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
     from .slam.checkpoint import load_slam, save_slam
     from .utils.timer import Timer, timing_summary
 
-    calib = np.loadtxt(calib, delimiter=" ") if isinstance(calib, str) \
-        else calib
     loop = loop_enabled or cfg.loop_enabled
     if loop and (checkpoint_every or resume):
         raise NotImplementedError(
             "a run with the loop closure cannot be saved or resumed: its "
             "retrieval database and keyframe images are not part of a "
             "checkpoint")
+    if calib is None or loop:
+        # one network for the calibration, the centre fitting and the run
+        from .models.convert import as_vonet
+        network = as_vonet(network, seed)
+    if calib is None:
+        from .init.colmap_init import run_colmap_initialization
+        calib = run_colmap_initialization(imagedir, path, skip,
+                                          params=network, device=device)
+    elif isinstance(calib, str):
+        calib = np.loadtxt(calib, delimiter=" ")
     if loop:
-        # one network for the centre fitting and the run
-        from .models.convert import (jax_params_to_torch,
-                                     load_reference_checkpoint)
-        from .models.vonet import VONet, init_vonet
         cfg = cfg.merge_from_dict({"loop_enabled": True})
-        network = network if isinstance(network, VONet) else \
-            load_reference_checkpoint(network) if isinstance(network, str) \
-            else init_vonet(seed) if network is None else \
-            jax_params_to_torch(network)
     gen = stream.image_frames(imagedir, depthdir, maskdir, calib, stride,
                               skip, end) if os.path.isdir(imagedir) else \
         stream.video_frames(imagedir, calib, stride, skip)
@@ -196,10 +198,6 @@ def main(argv=None):
                              "shape step (CUDA graph replays on the card)")
     args = parser.parse_args(argv)
 
-    if args.calib is None:
-        raise NotImplementedError("calibration without --calib is not "
-                                  "ported yet")
-
     from .utils.config import load_config, resource_path
 
     config = resource_path(args.config)
@@ -214,7 +212,8 @@ def main(argv=None):
         print(f"WARNING: checkpoint {args.network} not found; using weights "
               f"drawn from seed {args.set_seed}")
         network = None
-    run(cfg, network, args.imagedir, resource_path(args.calib),
+    calib = resource_path(args.calib) if args.calib else None
+    run(cfg, network, args.imagedir, calib,
         stride=args.stride, skip=args.skip, end=args.end, path=args.path,
         save_trajectory=args.save_trajectory, device=args.device,
         seed=args.set_seed, sync_mode=args.sync_mode,

@@ -39,13 +39,14 @@ def list_images(imagedir, stride=1, skip=0, end=None):
     return _globbed(imagedir, IMG_EXTS, skip, end, stride)
 
 
-def read_image(imfile, calib):
-    """One image file as BGR uint8, undistorted when calib [fx, fy, cx,
-    cy, k1, ...] has distortion terms."""
+def read_image(imfile, calib=None):
+    """One image file as BGR uint8 (None if it cannot be read),
+    undistorted when calib [fx, fy, cx, cy, k1, ...] has distortion
+    terms."""
     import cv2
 
-    calib = _calib(calib)
     image = cv2.imread(str(imfile), cv2.IMREAD_COLOR)
+    calib = _calib(calib) if calib is not None else ()
     if image is not None and len(calib) > 4:
         fx, fy, cx, cy = calib[:4]
         K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])

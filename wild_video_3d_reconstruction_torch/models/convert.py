@@ -1,22 +1,27 @@
-"""Weight carry-over into the port's `VONet`.
+"""Weight carry-over into the port's `VONet` and encoders.
 
-* `jax_params_to_torch(params_np)`: the JAX package's parameter tree
-  (nested dicts of numpy arrays) -> a `VONet` holding those weights. Conv
-  weights go HWIO -> OIHW and linear weights [in, out] -> [out, in]; the
-  tree paths are the module paths, so every tensor lands by name and a
-  missing or extra one raises. It reads numpy only.
+* `jax_params_to_torch(params_np, net=None)`: the JAX package's parameter
+  tree (nested dicts of numpy arrays) -> a `VONet` (or the given module,
+  e.g. a `BasicEncoder8` for `basic_encoder8`'s tree) holding those
+  weights. Conv weights go HWIO -> OIHW and linear weights [in, out] ->
+  [out, in]; the tree paths are the module paths, so every tensor lands
+  by name and a missing or extra one raises. It reads numpy only.
 * `load_reference_checkpoint(path)`: a published DPVO `.pth` state dict
   (module names `patchify.fnet.*`, `patchify.inet.*`, `update.*`) -> a
   `VONet`, by the JAX package's renaming rules: strip `module.`, drop
   `update.lmbda`, `downsample.0.` -> `downsample.`.
+* `as_vonet(network, seed)`: any of those, a `VONet`, or None (weights
+  drawn from seed) -> a `VONet`.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from .vonet import VONet
+from .vonet import VONet, init_vonet
 
 
 def _flatten(tree, prefix=""):
@@ -29,8 +34,9 @@ def _flatten(tree, prefix=""):
 
 
 def jax_params_to_torch(params_np, net=None):
-    """Load a JAX VONet param tree (numpy leaves) into `net` (a new CPU
-    `VONet` when None) and return it."""
+    """Load a JAX param tree (numpy leaves) into `net` (a new CPU `VONet`
+    when None; any module whose parameter paths are the tree's) and
+    return it."""
     state = {}
     for name, value in _flatten(params_np):
         arr = np.array(value, dtype=np.float32)
@@ -62,3 +68,16 @@ def load_reference_checkpoint(path, device="cpu"):
     net = VONet()
     net.load_state_dict(out, strict=True)
     return net.to(device).eval()
+
+
+def as_vonet(network=None, seed=0):
+    """A `VONet` from `network`: a `VONet` (returned as it is), a path to a
+    DPVO `.pth` checkpoint, the JAX package's parameter tree, or None for
+    weights drawn from `seed`."""
+    if isinstance(network, VONet):
+        return network
+    if isinstance(network, (str, os.PathLike)):
+        return load_reference_checkpoint(network)
+    if network is None:
+        return init_vonet(seed)
+    return jax_params_to_torch(network)

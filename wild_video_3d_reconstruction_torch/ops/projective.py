@@ -105,3 +105,13 @@ def flow_mag(poses, patches, intrinsics, ii, jj, kk, beta=0.3):
     flow1 = torch.linalg.norm(coords1 - coords0, dim=-1)
     flow2 = torch.linalg.norm(coords2 - coords0, dim=-1)
     return beta * flow1 + (1.0 - beta) * flow2
+
+
+def coords_grid_with_index(d):
+    """d [N, H, W] -> [N, 3, H, W]: each pixel's (x, y) stacked with d
+    (the JAX package's `coords_grid_with_index`)."""
+    n, h, w = d.shape
+    x = torch.arange(w, dtype=d.dtype, device=d.device)
+    y = torch.arange(h, dtype=d.dtype, device=d.device)
+    return torch.stack([x.expand(n, h, w), y[:, None].expand(n, h, w), d],
+                       dim=1)

@@ -63,8 +63,7 @@ import numpy as np
 import torch
 
 from ..loop.longterm import LongTermLoopClosure
-from ..models.convert import jax_params_to_torch, load_reference_checkpoint
-from ..models.vonet import VONet, init_vonet
+from ..models.convert import as_vonet
 from ..ops import lie
 from ..ops import projective as pops
 from ..utils.config import DPVOConfig
@@ -91,15 +90,7 @@ class DPVO:
         self.M = cfg.PATCHES_PER_FRAME
         self.device = torch.device(device)
         self.sync_mode = bool(sync_mode)
-        if isinstance(network, VONet):
-            net = network
-        elif isinstance(network, str):
-            net = load_reference_checkpoint(network)
-        elif network is None:
-            net = init_vonet(seed)
-        else:
-            net = jax_params_to_torch(network)
-        self.net = net.to(self.device).eval()
+        self.net = as_vonet(network, seed).to(self.device).eval()
         self.state: SLAMState = init_state(
             cfg, ht, wd, feat_dtype=steps.feat_dtype(cfg), seed=seed,
             device=self.device)

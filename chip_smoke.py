@@ -65,6 +65,19 @@ the true calibration's); the dense engine (`droid_keep`: `DenseVO` over
 24 frames of the stride-4 walk, ms per frame, peak memory, ATE; card
 against CPU at 96x128 with both flows, each frame from the CPU's state).
 
+Then VONet training on the card: the correlation's backward kernel
+(`kernel_corr_backward`, `csrc/corr_grad.cu`) against autograd through
+the plain version at the full training shape (T = 8, M = 32, 2048 edges,
+fp32 maps of 384x512 frames), with the forward's fp32 instantiation held
+against its plain version there too; one training step on the card
+against the same step on the CPU (`train_step_card_vs_cpu`: loss, every
+parameter's gradient, the parameters after the AdamW step);
+`eval/learn_synth.py`'s recipe from a seed-0 network for TRAIN_LS_STEPS
+steps (`train_learn_synth`: every loss finite, the held-out EPE falling;
+the trained checkpoint's EPE on the same clips beside the JAX package's
+reading of it); and `trainer.train`'s default configuration at 384x512
+(`train_full`: ms per step, peak memory, the backward kernel's share).
+
 The kernel counts include the launches of every graph replay. Each VO run
 also reports the share of its correlation edge-levels that took the
 per-pixel path. Each phase prints one JSON line; the kernel summary and
@@ -95,6 +108,7 @@ import torch
 
 from wild_video_3d_reconstruction_torch.ba import gauss_newton as tba
 from wild_video_3d_reconstruction_torch.eval import droid_harness as tdroid
+from wild_video_3d_reconstruction_torch.eval import learn_synth
 from wild_video_3d_reconstruction_torch.eval import synth_ate
 from wild_video_3d_reconstruction_torch.eval.loop_ate import revisit_gap_lap
 from wild_video_3d_reconstruction_torch.init import colmap_init as tci
@@ -119,12 +133,16 @@ from wild_video_3d_reconstruction_torch.ops.corr import (
     LEVELS, box_plan, corr_lookup, patch_corr_pyramid)
 from wild_video_3d_reconstruction_torch.ops.segment import (
     run_first_rows, run_segment_sum_sorted, run_segment_sum_sorted_plain)
+from wild_video_3d_reconstruction_torch.parallel import train_step as tts
 from wild_video_3d_reconstruction_torch.slam import DPVO, steps
 from wild_video_3d_reconstruction_torch.slam import global_ba as tgba
 from wild_video_3d_reconstruction_torch.slam.checkpoint import (load_slam,
                                                                 save_slam)
 from wild_video_3d_reconstruction_torch.slam.graphs import graph_label
-from wild_video_3d_reconstruction_torch.train.synth import render_sequence
+from wild_video_3d_reconstruction_torch.train.forward import (
+    TrainConfig, all_pairs_edges)
+from wild_video_3d_reconstruction_torch.train.synth import (
+    make_world_batch, render_clip, render_sequence)
 from wild_video_3d_reconstruction_torch.utils.config import (
     DPVOConfig, load_config)
 
@@ -1754,6 +1772,345 @@ def phase_droid_keep(keep):
         if bad:
             fail(f"droid_keep: card against CPU ({flow}): " + "; ".join(bad))
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+GRAD_SOURCE = "wild_video_3d_reconstruction_torch/csrc/corr_grad.cu"
+# the backward kernel replaces no TPU kernel: XLA differentiates the JAX
+# package's plain correlation on its training path
+GRAD_REPLACES = ("none: XLA's gradient of "
+                 "wild_video_3d_reconstruction_tpu/ops/corr.py:115 "
+                 "(patch_corr_pyramid)")
+# trainer.train's default TrainConfig(frames=8, patches=32, steps=8)
+TRAIN_FULL = TrainConfig(frames=8, patches=32, steps=8)
+TRAIN_FULL_BATCH = 4
+TRAIN_FULL_STEPS = 3
+# eval/learn_synth.py's recipe: TrainConfig(6, 8, steps=3), 48x64,
+# batch 4, lr 3e-4 with the one-cycle schedule, 8 held-out clips
+TRAIN_LS = TrainConfig(frames=6, patches=8, steps=3)
+TRAIN_LS_STEPS = 100
+# each gradient of the backward kernel against autograd through the plain
+# version, relative to its largest magnitude: fp32 atomics add in the
+# order the warps arrive, the plain version sums in another order; the
+# forward's fp32 instantiation likewise (fp32 sums of 128 products)
+TOL_CORR_GRAD_REL = 1e-5
+TOL_CORR_FP32_REL = 1e-5
+# train_step_card_vs_cpu: the loss within TOL_TRAIN_LOSS_REL; each
+# parameter tensor's gradient within TOL_TRAIN_GRAD_REL of its norm plus
+# 1e-6 of the global norm (the gradients that are zero by symmetry are
+# rounding noise on both sides); the card's BA sums in fp64, cuDNN and the
+# kernels sum in other orders. The first reading (NVIDIA H100 80GB HBM3,
+# 700 W): loss 4.1e-7, gradients at most 1.5e-5, median 1.1e-5
+TOL_TRAIN_LOSS_REL = 1e-4
+TOL_TRAIN_GRAD_REL = 1e-4
+TOL_TRAIN_GRAD_GLOBAL = 1e-6
+# the JAX package's own `eval/learn_synth.py:evaluate` of the checkpoint
+# checkpoints/synth_tpu_r3_step2000 (the weights' source) on the same
+# held-out clips, on the CPU: scripts/torch_learn_synth_checkpoint.py
+# (its draws differ from the port's, ROADMAP R18)
+JAX_CHECKPOINT_EPE = 0.03382406523451209
+
+
+def train_corr_inputs(gen):
+    """The training forward's correlation at TRAIN_FULL: T = 8 fp32 maps
+    of a 384x512 frame (/4 and /16), T * M = 256 patches, the all-pairs
+    edges (2048, 1792 live: ii != jj). Patch centres uniform over the map
+    and 16 px beyond it (windows on the map, straddling its edge and off
+    it), 10% of them a further 200 px off; a random flow."""
+    T, M = TRAIN_FULL.frames, TRAIN_FULL.patches
+    h4, w4 = HT // 4, WD // 4
+
+    def randn(*shape):
+        return (0.25 * torch.randn(*shape, generator=gen)).to(DEV)
+
+    gmap = randn(T * M, 128, 3, 3)
+    fmap1 = randn(T, h4, w4, 128)
+    fmap2 = randn(T, h4 // 4, w4 // 4, 128)
+    _, jj, kk, keep = all_pairs_edges(T, M)
+    E = kk.shape[0]
+    cx = torch.rand(E, generator=gen) * (w4 + 32) - 16
+    cy = torch.rand(E, generator=gen) * (h4 + 32) - 16
+    far = torch.rand(E, generator=gen) < 0.1
+    cx = torch.where(far, cx + 200.0, cx)
+    flow = 2.0 * torch.randn(E, 2, generator=gen)
+    off = torch.arange(3.0) - 1
+    x = (cx + flow[:, 0])[:, None, None] + off[None, None, :]
+    y = (cy + flow[:, 1])[:, None, None] + off[None, :, None]
+    coords = torch.stack([x.expand(E, 3, 3), y.expand(E, 3, 3)], -1)
+    return (gmap, fmap1, fmap2, coords.to(DEV).contiguous(),
+            kk.to(DEV, torch.int32), jj.to(DEV, torch.int32), keep.to(DEV))
+
+
+def window_classes(pyr, coords, valid):
+    """Per level, the shares of the valid edges' pixel windows that lie
+    wholly on the map, straddle its edge, or miss it."""
+    out = {}
+    v = valid.bool()
+    for (fmap, s), name in zip(zip(pyr, LEVELS), ("level1", "level2")):
+        _, H, W, _ = fmap.shape
+        ys, xs = tcorr.window_starts(coords[v] / s)
+        inside = (ys >= 0) & (ys + 8 <= H) & (xs >= 0) & (xs + 8 <= W)
+        on = (ys > -8) & (ys < H) & (xs > -8) & (xs < W)
+        n = ys.numel()
+        out[name] = dict(on=int(inside.sum()) / n,
+                         straddle=int((on & ~inside).sum()) / n,
+                         off=int((~on).sum()) / n)
+    return out
+
+
+def kernel_corr_backward(gen):
+    """csrc/corr_grad.cu against autograd through the plain version at the
+    full training shape; the forward's fp32 instantiation against its
+    plain version on the same inputs."""
+    gmap, fmap1, fmap2, coords, kk, jj, valid = train_corr_inputs(gen)
+    pyr = (fmap1, fmap2)
+    E = coords.shape[0]
+    out = corr_lookup(gmap, pyr, coords, kk, jj, valid)
+    torch.cuda.synchronize()
+    ref = patch_corr_pyramid(gmap, pyr, coords, kk, jj, valid=valid)
+    fwd_rel = (out - ref).abs().max().item() / ref.abs().max().item()
+    fwd_ms = time_ms(lambda: corr_lookup(gmap, pyr, coords, kk, jj, valid))
+    del out, ref
+    go = torch.randn(E, 882, generator=gen).to(DEV)
+
+    def launch():
+        return tcorr.corr_pyramid_backward(go, gmap, pyr, coords, kk, jj,
+                                           valid)
+
+    grads, again = launch(), launch()
+    torch.cuda.synchronize()
+    plain = tcorr.corr_pyramid_backward_plain(go, gmap, pyr, coords, kk, jj,
+                                              valid)
+    names = ("gmap", "fmap1", "fmap2")
+    rel = {n: (a - b).abs().max().item() / b.abs().max().item()
+           for n, a, b in zip(names, grads, plain)}
+    abs_err = max((a - b).abs().max().item() for a, b in zip(grads, plain))
+    rerun = {n: (a - b).abs().max().item() / b.abs().max().item()
+             for n, a, b in zip(names, grads, again)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    ms = time_ms(launch)
+    ms_b2b = back_to_back_ms(launch)
+    # the plain version's backward alone: autograd through the plain
+    # forward, whose graph is built once
+    leaves = [t.detach().clone().requires_grad_() for t in (gmap, *pyr)]
+    with torch.enable_grad():
+        plain_out = patch_corr_pyramid(leaves[0], tuple(leaves[1:]), coords,
+                                       kk, jj, valid=valid)
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        plain_out, leaves, go, retain_graph=True), reps=5, warmup=1)
+    del plain_out, leaves, plain, again
+    n_bytes, flops = corr_work(gmap, pyr, coords, kk, jj, valid, *grads)
+    n_bytes += int(valid.sum()) * 882 * 4          # grad_out's valid rows
+    row = dict(
+        name="corr_pyramid_backward", route="cuda", source=GRAD_SOURCE,
+        replaces=GRAD_REPLACES, max_abs_err=abs_err, ms=ms,
+        ms_back_to_back=ms_b2b, plain_ms=plain_ms,
+        # 4 fp32 flops per channel and in-map window position (SIMT)
+        **bound(n_bytes, 2 * flops, FP32_FLOPS), library_ms=None)
+    emit("kernel_corr_backward", E=E, live_edges=int(valid.sum()),
+         fmap1=list(fmap1.shape), fmap2=list(fmap2.shape),
+         windows=window_classes(pyr, coords, valid), rel_err=rel,
+         tol_rel=TOL_CORR_GRAD_REL, two_calls_rel_diff=rerun, finite=finite,
+         bytes=n_bytes, flops=2 * flops, forward_fp32_rel_err=fwd_rel,
+         forward_fp32_ms=fwd_ms, tol_forward_fp32_rel=TOL_CORR_FP32_REL,
+         **row)
+    if not finite or max(rel.values()) > TOL_CORR_GRAD_REL or \
+            max(rerun.values()) > TOL_CORR_GRAD_REL:
+        fail(f"kernel_corr_backward: relative errors {rel}, two calls "
+             f"{rerun} (tol {TOL_CORR_GRAD_REL}), finite {finite}")
+    if not fwd_rel <= TOL_CORR_FP32_REL:
+        fail(f"kernel_corr_backward: the fp32 forward disagrees with its "
+             f"plain version: {fwd_rel} > {TOL_CORR_FP32_REL}")
+    return row
+
+
+def _train_draws(tc, batch_size, ht, wd, seed=0):
+    """Injected patch centres [B, T, M, 2] and initial depths [B, T*M]."""
+    rng = np.random.default_rng(seed)
+    T, M = tc.frames, tc.patches
+    coords = np.stack([rng.integers(1, wd // 4 - 1, (batch_size, T, M)),
+                       rng.integers(1, ht // 4 - 1, (batch_size, T, M))],
+                      -1).astype(np.float32)
+    d0 = rng.uniform(0.2, 1.0, (batch_size, T * M)).astype(np.float32)
+    return coords, d0
+
+
+def phase_train_step_card_vs_cpu():
+    """One training step (loss, backward, AdamW) on the same batch and
+    draws on the card and on the CPU (plain versions)."""
+    tc = TRAIN_LS._replace(edge_dropout=0.0)
+    batch = make_world_batch(77, 2, tc)
+    coords, d0 = _train_draws(tc, 2, 48, 64)
+    sides, launches = {}, {}
+    p0 = {n: p.detach().double() for n, p in
+          vonet.init_vonet(0).named_parameters()}
+    for side, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        net = vonet.init_vonet(0).to(dev)
+        opt = tts.make_optimizer(net.parameters(), lr=3e-4, steps=100)
+        _native.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, metrics = tts.clip_loss_fn(net, tts.batch_to(batch, dev),
+                                         torch.Generator(), tc, coords, d0)
+        loss.backward()
+        grads = {n: p.grad.detach().double().cpu()
+                 for n, p in net.named_parameters()}
+        opt.step()
+        moved = {n: p.detach().double().cpu() - p0[n]
+                 for n, p in net.named_parameters()}
+        seconds = time.perf_counter() - t0
+        if side == "card":
+            launches = dict(_native.LAUNCHES)
+        sides[side] = dict(loss=float(loss.detach()), grads=grads,
+                           moved=moved, seconds=seconds,
+                           **{k: float(v.detach()) for k, v in
+                              metrics.items() if k != "loss"})
+    card, cpu = sides["card"], sides["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    total = float(torch.sqrt(sum((g * g).sum() for g in
+                                 cpu["grads"].values())))
+    rel, bad, noise = {}, [], []
+    for n, g in cpu["grads"].items():
+        err = float((card["grads"][n] - g).norm())
+        rel[n] = err / max(float(g.norm()), 1e-30)
+        if float(g.norm()) < TOL_TRAIN_GRAD_GLOBAL * total:
+            noise.append(n)
+        if err > TOL_TRAIN_GRAD_REL * float(g.norm()) + \
+                TOL_TRAIN_GRAD_GLOBAL * total:
+            bad.append((n, rel[n]))
+    signal_rel = sorted(v for n, v in rel.items() if n not in noise)
+    def moved_rel(names):
+        err = sum(float(((card["moved"][n] - cpu["moved"][n]) ** 2).sum())
+                  for n in names)
+        norm = sum(float((cpu["moved"][n] ** 2).sum()) for n in names)
+        return (err / norm) ** 0.5
+
+    worst = max((v, n) for n, v in rel.items() if n not in noise)
+    emit("train_step_card_vs_cpu", frames=tc.frames, patches=tc.patches,
+         steps=tc.steps, batch=2, HxW=[48, 64], edge_dropout=0.0,
+         loss_card=card["loss"], loss_cpu=cpu["loss"], loss_rel=loss_rel,
+         flow_loss=[card["flow_loss"], cpu["flow_loss"]],
+         pose_loss=[card["pose_loss"], cpu["pose_loss"]],
+         tensors=len(rel), grad_norm_cpu=total,
+         grad_rel_max=worst[0], grad_rel_max_tensor=worst[1],
+         grad_rel_median=statistics.median(signal_rel),
+         symmetry_zero_tensors=len(noise),
+         symmetry_zero_rel_max=max((rel[n] for n in noise), default=0.0),
+         adamw_displacement_rel=moved_rel(rel),
+         adamw_displacement_rel_without_symmetry_zero=moved_rel(
+             [n for n in rel if n not in noise]),
+         seconds_card=card["seconds"], seconds_cpu=cpu["seconds"],
+         launches=launches, tol_loss_rel=TOL_TRAIN_LOSS_REL,
+         tol_grad_rel=TOL_TRAIN_GRAD_REL)
+    if not loss_rel <= TOL_TRAIN_LOSS_REL or bad or len(rel) != 94:
+        fail(f"train_step_card_vs_cpu: loss rel {loss_rel}, gradients "
+             f"beyond tolerance: {bad[:5]}")
+    if not launches["corr_pyramid"] or not launches["corr_pyramid_backward"]:
+        fail(f"train_step_card_vs_cpu: correlation kernels not launched: "
+             f"{launches}")
+    return launches
+
+
+def phase_train_learn_synth():
+    """eval/learn_synth.py's recipe on the card from a seed-0 network;
+    the trained checkpoint on the same held-out clips."""
+    _native.reset_launch_counts()
+    res = learn_synth.main(steps=TRAIN_LS_STEPS, batch=4, eval_clips=8,
+                           lr=3e-4, seed=0, log_every=10, device=DEV)
+    launches = dict(_native.LAUNCHES)
+    losses = res["losses"]
+    held = learn_synth.held_out_batches(TRAIN_LS)
+    ckpt = learn_synth.evaluate(load_reference_checkpoint(WEIGHTS, DEV),
+                                held, TRAIN_LS, DEV)
+    finite = bool(np.isfinite(losses).all())
+    emit("train_learn_synth", steps=TRAIN_LS_STEPS, batch=4,
+         frames=TRAIN_LS.frames, patches=TRAIN_LS.patches,
+         unrolled=TRAIN_LS.steps, HxW=[48, 64], lr=3e-4,
+         loss_every_10=losses[::10], loss_last=losses[-1],
+         all_losses_finite=finite, before=res["before"], after=res["after"],
+         epe_ratio=res["epe_ratio"],
+         ms_per_step=res["train_s"] / TRAIN_LS_STEPS * 1e3,
+         launches=launches, checkpoint=WEIGHTS, checkpoint_eval=ckpt,
+         jax_checkpoint_epe_cpu=JAX_CHECKPOINT_EPE,
+         jax_checkpoint_epe_source="scripts/torch_learn_synth_checkpoint.py")
+    if not finite or not res["after"]["epe"] < res["before"]["epe"]:
+        fail(f"train_learn_synth: losses finite {finite}, EPE "
+             f"{res['before']['epe']} -> {res['after']['epe']}")
+    if not launches["corr_pyramid_backward"]:
+        fail("train_learn_synth: the backward kernel was not launched")
+    return launches
+
+
+def render_train_clips(seed, n, frames, ht, wd, f):
+    """n clips of render_clip at ht x wd with focal f, stacked in the
+    training step's batch layout (in a render worker)."""
+    rng = np.random.default_rng(seed)
+    clips = [render_clip(rng, frames=frames, ht=ht, wd=wd, fx=f, fy=f)
+             for _ in range(n)]
+    return {k: np.stack([c[i] for c in clips]) for i, k in
+            enumerate(("images", "poses", "disps", "intrinsics"))}
+
+
+def phase_train_full(batch):
+    """trainer.train's default configuration at the VO's 384x512: a few
+    steps from a seed-0 network, the backward kernel's time in CUDA
+    events around each launch."""
+    net = vonet.init_vonet(0).to(DEV)
+    step = tts.build_train_step(net, TRAIN_FULL, tts.make_optimizer(
+        net.parameters(), lr=8e-5), DEV)
+    gen = torch.Generator().manual_seed(1)
+    events = []
+    saved = tcorr.corr_pyramid_backward
+
+    def timed_backward(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = saved(*a, **kw)
+        ev[1].record()
+        events[-1].append(ev)
+        return out
+
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launch_counts()
+    tcorr.corr_pyramid_backward = timed_backward
+    try:
+        for _ in range(TRAIN_FULL_STEPS):
+            events.append([])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(batch, gen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            bwd = sum(a.elapsed_time(b) for a, b in events[-1])
+            rows.append(dict(ms=ms, loss=float(m["loss"]),
+                             grad_norm=float(m["grad_norm"]),
+                             backward_kernel_ms=bwd,
+                             backward_kernel_launches=len(events[-1])))
+    finally:
+        tcorr.corr_pyramid_backward = saved
+    launches = dict(_native.LAUNCHES)
+    later = rows[1:]
+    ms_step = statistics.mean(r["ms"] for r in later)
+    share = sum(r["backward_kernel_ms"] for r in later) / \
+        sum(r["ms"] for r in later)
+    finite = all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                 for r in rows)
+    emit("train_full", frames=TRAIN_FULL.frames,
+         patches=TRAIN_FULL.patches, unrolled=TRAIN_FULL.steps,
+         batch=TRAIN_FULL_BATCH, HxW=[HT, WD], fx=320.0,
+         edges=TRAIN_FULL.frames ** 2 * TRAIN_FULL.patches, steps=rows,
+         ms_first_step=rows[0]["ms"], ms_per_step=ms_step,
+         backward_kernel_share=share,
+         peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches, finite=finite)
+    if not finite:
+        fail(f"train_full: loss or gradient not finite: {rows}")
+    if not launches["corr_pyramid"] or not launches["corr_pyramid_backward"]:
+        fail(f"train_full: correlation kernels not launched: {launches}")
+    return launches
+
 
 def _timed(fn, *a, **kw):
     """fn(*a, **kw) and its seconds (in a render worker)."""
@@ -1765,7 +2122,8 @@ def _timed(fn, *a, **kw):
 def start_renders():
     """The scenes' host renders, started at once in worker processes (the
     host's numpy would otherwise hold the card idle for minutes): the wild
-    walk, its stride-4 keep, the two-lap world. Returns their futures."""
+    walk, its stride-4 keep, the two-lap world, the full-size training
+    clips. Returns their futures."""
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=3, mp_context=multiprocessing.get_context("spawn"))
     RENDER_POOL.append(pool)
@@ -1777,7 +2135,10 @@ def start_renders():
         "multilap": pool.submit(_timed, render_sequence, 0,
                                 frames=MULTILAP_FRAMES, ht=HT, wd=WD,
                                 fx=320.0, fy=320.0, path="multiloop",
-                                n_planes=3)}
+                                n_planes=3),
+        "train": pool.submit(_timed, render_train_clips, 0,
+                             TRAIN_FULL_BATCH, TRAIN_FULL.frames, HT, WD,
+                             320.0)}
 
 
 def multilap_config(loop):
@@ -2020,7 +2381,8 @@ def main():
     rows = [kernel_corr(gen), kernel_runsum(gen),
             kernel_region_fused(gen, "x32"),
             kernel_region_fused(gen, "x16"),
-            *kernel_region_split(gen), kernel_chol(gen)]
+            *kernel_region_split(gen), kernel_chol(gen),
+            kernel_corr_backward(gen)]
     kernel_region_fused(gen, "x32", M=48, E=E_FAST, shapes="fast")
     phase_slam_tiny()
     phase_slam_tiny(True, "x32", "corr_region_fused_x32")
@@ -2067,6 +2429,17 @@ def main():
     del wild
     phase_droid_keep(keep)
     del keep
+    for phase in (phase_train_step_card_vs_cpu, phase_train_learn_synth):
+        for k, v in phase().items():
+            total[k] += v
+    t0 = time.perf_counter()
+    train_batch, seconds = renders["train"].result()
+    emit("render_train", clips=TRAIN_FULL_BATCH, frames=TRAIN_FULL.frames,
+         HxW=[HT, WD], fx=320.0, seconds=seconds,
+         waited_s=time.perf_counter() - t0)
+    for k, v in phase_train_full(train_batch).items():
+        total[k] += v
+    del train_batch
     t0 = time.perf_counter()
     multilap, seconds = renders["multilap"].result()
     stop_renders()

@@ -12,7 +12,8 @@ descriptors from the steady step, the native "dbow" retrieval built from
 `native/graphlib.cpp`, candidates verified) terminates; the
 self-calibration's frame selection (`select_frames`: the Farneback flow
 without cv2), the bootstrap's `track_grid` and a 3-frame `DenseVO` (both
-flows) run. A
+flows) run; one training step and one held-out evaluation of
+`eval/learn_synth.py` run on the CPU. A
 static scan of the port's sources backs this up for lazy imports inside
 functions: cv2 only inside the readers of `io/stream.py`.
 """
@@ -117,6 +118,22 @@ for flow in ("lk", "corr"):
         vo(t, images[t])
     est, _ = vo.terminate()
     assert est.shape == (3, 7) and np.isfinite(est).all()
+# training: one step of the one-device train step, one evaluation
+from wild_video_3d_reconstruction_torch.eval import learn_synth
+from wild_video_3d_reconstruction_torch.models.vonet import init_vonet
+from wild_video_3d_reconstruction_torch.parallel.train_step import (
+    build_train_step, make_optimizer)
+from wild_video_3d_reconstruction_torch.train.forward import TrainConfig
+from wild_video_3d_reconstruction_torch.train.synth import make_world_batch
+tc = TrainConfig(frames=3, patches=2, steps=1)
+net = init_vonet(0)
+step = build_train_step(net, tc, make_optimizer(net.parameters(), steps=2),
+                        "cpu")
+m = step(make_world_batch(0, 1, tc, ht=32, wd=32), torch.Generator())
+assert np.isfinite(float(m["loss"]))
+ev = learn_synth.evaluate(net, [make_world_batch(1, 1, tc, ht=32, wd=32)],
+                          tc, "cpu")
+assert np.isfinite(ev["epe"])
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in {blocked!r} and sys.modules[k])
 print("LOADED", loaded, len(names))

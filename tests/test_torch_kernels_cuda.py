@@ -499,6 +499,71 @@ def test_corr_box_edge_cases(cuda_device, case, entry, dtype):
         assert not bool(out.any())
 
 
+
+TOL_CORR_GRAD_REL = 1e-5
+GRAD_CASES = ("spread", "box_at_capacity", "box_beyond_capacity",
+              "mixed_box_per_pixel", "one_edge", "ragged_blocks", "tiny_map",
+              "nan_and_huge_invalid", "all_invalid")
+
+
+def grad_case(case):
+    """A backward case: the correlation body's edge cases, the NaN ones
+    on invalid rows only (the rows the training forward drops)."""
+    if case == "spread":
+        return corr_case(3, E=2048, spread=3.0)
+    if case != "nan_and_huge_invalid":
+        return box_case(case)
+    gmap, fmaps, coords, kk, jj, valid = box_case("nan_and_huge")
+    valid = valid.copy()
+    valid[0:32] = False                  # the rows with NaN coordinates
+    return gmap, fmaps, coords, kk, jj, valid
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_corr_backward_kernel_matches_autograd(cuda_device, case):
+    """csrc/corr_grad.cu through corr_lookup's autograd Function against
+    autograd through the plain version, fp32: each gradient within 1e-5
+    of its largest magnitude (fp32 atomics add in the order the warps
+    arrive; the plain version sums in another order)."""
+    g, pyr, c, k, j, v = _to_dev(grad_case(case), cuda_device,
+                                 torch.float32)
+    rng = np.random.default_rng(1)
+    go = torch.from_numpy(rng.normal(size=(c.shape[0], 882))
+                          .astype(np.float32)).to(cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (g, *pyr)]
+    n0 = _native.LAUNCHES["corr_pyramid_backward"]
+    out = tcorr.corr_lookup(leaves[0], tuple(leaves[1:]), c, k, j, v)
+    out.backward(go)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["corr_pyramid_backward"] == n0 + 1
+    ref = tcorr.corr_pyramid_backward_plain(go, g, pyr, c, k, j, v)
+    for leaf, r in zip(leaves, ref):
+        assert torch.isfinite(leaf.grad).all()
+        err = (leaf.grad - r).abs().max().item()
+        assert err <= TOL_CORR_GRAD_REL * r.abs().max().item(), (case, err)
+    if case == "all_invalid":
+        assert not any(bool(leaf.grad.any()) for leaf in leaves)
+
+
+def test_corr_gradient_rejects_what_it_cannot_take(cuda_device):
+    """Coordinates that need a gradient, and bf16 features that need one,
+    raise; bf16 features without one (the SLAM path) still run; a kernel
+    with no backward raises on an input that needs a gradient."""
+    g, pyr, c, k, j, v = _to_dev(corr_case(0, E=64), cuda_device,
+                                 torch.float32)
+    with pytest.raises(ValueError, match="coords"):
+        tcorr.corr_lookup(g, pyr, c.clone().requires_grad_(), k, j, v)
+    gb = g.to(torch.bfloat16).requires_grad_()
+    pyr_b = tuple(f.to(torch.bfloat16) for f in pyr)
+    with pytest.raises(TypeError, match="fp32"):
+        tcorr.corr_lookup(gb, pyr_b, c, k, j, v)
+    out = tcorr.corr_lookup(gb.detach(), pyr_b, c, k, j, v)
+    assert out.shape == (64, 882) and not out.requires_grad
+    fes = torch.zeros(64, 768, device=cuda_device, requires_grad=True)
+    seg = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="gradient"):
+        tseg.run_segment_sum_sorted(fes, seg)
+
 @pytest.mark.parametrize("d", [1, 2, 7, 8, 9, 15, 16, 17, 33, 54, 72, 100,
                                128, 255, 256])
 def test_chol_kernel_matches_plain(cuda_device, d):

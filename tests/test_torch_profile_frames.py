@@ -10,7 +10,8 @@ def test_port_kernel_sources_name_every_kernel():
     assert pf.port_kernel_sources() == {
         "chol_solve_kernel": "chol.cu", "corr_box_kernel": "corr_box.cu",
         "surfaces_kernel": "corr_box.cu", "extract_kernel": "corr_region.cu",
-        "runsum_boundary": "runsum.cu", "runsum_apply": "runsum.cu"}
+        "runsum_boundary": "runsum.cu", "runsum_apply": "runsum.cu",
+        "corr_backward_kernel": "corr_grad.cu"}
 
 
 @pytest.mark.parametrize("key,name", [

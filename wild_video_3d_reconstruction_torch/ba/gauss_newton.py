@@ -6,7 +6,8 @@ Jacobians, the robust mask, the dense pose Hessian and pose/depth coupling
 blocks (the depth blocks through a per-patch edge table), the mu*L depth
 prior, the Schur complement over the diagonal depth block, a Cholesky
 solve whose failure gives a zero step, the per-iteration depth-step clamp,
-and the retractions with the inference kernel's depth rules.
+and the retractions with the inference kernel's depth rules (or the
+training BA's clamp, `depth_clamp="train"`).
 
 The pose window [t0, t1) and the first live patch id m_base are host
 integers or 0-d tensors on the device (the steady frame step passes them
@@ -15,7 +16,10 @@ so, as the JAX package traces them): the retractions run over the static
 sentinel row, so no shape depends on them. `_bundle_adjust_impl` returns
 new pose and patch tensors and leaves its inputs as they were. It solves
 in fp32, or in fp64 when the poses come in fp64 (the parity checks take
-that as the exact solution of an ill-conditioned problem).
+that as the exact solution of an ill-conditioned problem). It is
+differentiable end to end (the training forward backpropagates through
+it into the flow targets and weights): the in-place writes are
+`index_copy_` into fresh tensors, which autograd records.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ class BAConfig(NamedTuple):
     prior_mu: float = 2.0
     # per-iteration trust region on the inverse-depth step (None: off)
     depth_step_clamp: float | None = 1.0
+    # depth retraction rule: "cuda" = the inference kernel's (d > 20 ->
+    # 1.0, floor 1e-4); "train" = the training BA's clamp(1e-3, 10.0)
+    depth_clamp: str = "cuda"
 
 
 def _group_by_patch(q, okq, M_, cap, order=None):
@@ -232,8 +239,11 @@ def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
     pidx = torch.where(plive, slots.clamp(0, Nk - 1), Nk)
     d_old = patches[pidx.clamp(max=Nk - 1), 2]
     d_new = d_old[:, 0, 0] + dZ
-    # the inference kernel's rule: d > 20 -> 1.0, floor 1e-4
-    d_new = torch.where(d_new > 20.0, 1.0, d_new).clamp(min=1e-4)
+    if cfg.depth_clamp == "train":
+        d_new = d_new.clamp(1e-3, 10.0)
+    else:
+        # the inference kernel's rule: d > 20 -> 1.0, floor 1e-4
+        d_new = torch.where(d_new > 20.0, 1.0, d_new).clamp(min=1e-4)
     d_new = torch.where(plive, d_new, d_old[:, 0, 0])
     patches = torch.cat([patches, patches.new_zeros((1,) + patches.shape[1:])])
     patches[:, 2].index_copy_(0, pidx, d_new[:, None, None].expand_as(d_old))

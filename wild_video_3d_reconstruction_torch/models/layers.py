@@ -14,6 +14,47 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class _GradientClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.where(torch.isnan(g), 0.0, g).clamp(-0.01, 0.01)
+
+
+class _GradientZero(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = torch.where(torch.isnan(g), 0.0, g)
+        return torch.where(g.abs() > 0.1, 0.0, g)
+
+
+def gradient_clip(x):
+    """Identity; its backward maps NaN to 0, then clamps to [-0.01, 0.01]
+    (the JAX package's `gradient_clip`, the reference's GradClip)."""
+    return _GradientClip.apply(x)
+
+
+def gradient_zero(x):
+    """Identity; its backward maps NaN to 0, then zeroes every |g| > 0.1
+    (the JAX package's `gradient_zero`, the reference's GradZero)."""
+    return _GradientZero.apply(x)
+
+
+class GradientClip(nn.Module):
+    """`gradient_clip` as a parameter-free module (inside a Sequential
+    head, whose parameter names it leaves as they were)."""
+
+    def forward(self, x):
+        return gradient_clip(x)
+
+
 def _init_linear(layer, generator):
     """torch.nn.Linear's default, U(-1/sqrt(in), 1/sqrt(in)), drawn from
     an explicit generator."""

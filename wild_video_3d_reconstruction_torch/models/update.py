@@ -8,8 +8,9 @@ c1-updated state) -> SoftAgg over same-patch and same-frame-pair groups ->
 Submodule names follow the JAX parameter tree, so `models.convert` maps
 one onto the other name for name.
 
-The port runs inference only: the JAX package's gradient-clipping
-identities on the two heads change no forward value and are left out.
+The two heads end in `gradient_clip` (identity forward; the backward
+clamps to [-0.01, 0.01]), as the JAX package's do, so training clips their
+gradients and inference computes what it did without them.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from torch import nn
 from ..ops.segment import (segment_softmax_weighted_sum,
                            segment_softmax_weighted_sum_dense,
                            segment_softmax_weighted_sum_runsum)
-from .layers import LayerNorm, Linear
+from .layers import GradientClip, LayerNorm, Linear
 
 DIM = 384
 
@@ -85,8 +86,8 @@ class UpdateOperator(nn.Module):
         self.corr = nn.Sequential(
             Linear(2 * 49 * p * p, DIM, g), nn.ReLU(), Linear(DIM, DIM, g),
             LayerNorm(DIM, eps=1e-3), nn.ReLU(), Linear(DIM, DIM, g))
-        self.d = nn.Sequential(nn.ReLU(), Linear(DIM, 2, g))
-        self.w = nn.Sequential(nn.ReLU(), Linear(DIM, 2, g))
+        self.d = nn.Sequential(nn.ReLU(), Linear(DIM, 2, g), GradientClip())
+        self.w = nn.Sequential(nn.ReLU(), Linear(DIM, 2, g), GradientClip())
 
     def forward(self, net, inp, corr, kk_seg, ij_seg, nbr_ix, nbr_jx, valid,
                 num_kk_segments, num_ij_segments, kk_order=None):

@@ -5,12 +5,16 @@ DIM=384 context features and 128-channel matching features.
 
   VONet          the two stride-4 encoders and the update operator
   encode_frame   both encoders on one frame -> channel-last maps
+                 (no gradient, bf16 by default: the SLAM path)
+  encode_frames  both encoders on T frames, keeping gradients (fp32 by
+                 default: the training path)
   select_patches random, gradient-biased, mask-constrained or keypoint
                  centres (or the caller's): `draw_centres` on the host,
                  then `top_by_gradient`, `top_by_mask` or
                  `top_keypoints` (over `keypoint_response_map`) on the
                  frame's device
-  gather_patches imap / gmap / colour / (x, y, d) patch gathers
+  gather_patches imap / gmap / colour / (x, y, d) patch gathers, the
+                 depth from a disparity map when one is given
 """
 
 from __future__ import annotations
@@ -63,6 +67,15 @@ def encode_frame(net: VONet, image, compute_dtype=torch.bfloat16):
     fmap = net.fnet(x) / 4.0
     imap = net.inet(x) / 4.0
     return FrameFeatures(fmap[0].permute(1, 2, 0), imap[0].permute(1, 2, 0))
+
+
+def encode_frames(net: VONet, images, compute_dtype=torch.float32):
+    """images [T, H, W, 3] uint8 -> FrameFeatures of [T, H/4, W/4, C]
+    maps, with gradients (the training forward encodes in fp32)."""
+    x = normalize_image(images).permute(0, 3, 1, 2).to(compute_dtype)
+    fmap = net.fnet(x) / 4.0
+    imap = net.inet(x) / 4.0
+    return FrameFeatures(fmap.permute(0, 2, 3, 1), imap.permute(0, 2, 3, 1))
 
 
 def image_gradient_map(image):
@@ -173,9 +186,11 @@ def select_patches(generator, M, h, w, gradient_map=None, oversample=3,
         top_by_gradient(cand, M, gradient_map)
 
 
-def gather_patches(feats: FrameFeatures, image, coords):
+def gather_patches(feats: FrameFeatures, image, coords, disp=None):
     """(imap [M, 384], gmap [M, 128, P, P], clr [M, 3] RGB 0..255,
-    patches [M, 3, P, P] of (x, y, inverse depth = 1))."""
+    patches [M, 3, P, P] of (x, y, inverse depth)). The inverse depth is 1,
+    or with disp [H/4, W/4] (the training path's ground truth) that map
+    sampled at each patch pixel."""
     M = coords.shape[0]
     imap_p = patchify(feats.imap.float(), coords, 0)[:, :, 0, 0]
     gmap_p = patchify(feats.fmap.float(), coords, P // 2)
@@ -187,7 +202,12 @@ def gather_patches(feats: FrameFeatures, image, coords):
     offs = torch.arange(P, dtype=torch.float32, device=coords.device) - P // 2
     px = (coords[:, None, None, 0] + offs[None, None, :]).expand(M, P, P)
     py = (coords[:, None, None, 1] + offs[None, :, None]).expand(M, P, P)
-    pd = torch.ones((M, P, P), dtype=torch.float32, device=coords.device)
+    if disp is None:
+        pd = torch.ones((M, P, P), dtype=torch.float32, device=coords.device)
+    else:
+        grid = torch.stack([px, py], dim=-1).reshape(M * P * P, 2)
+        pd = patchify(disp[..., None].float(), grid, 0)[:, 0, 0, 0] \
+            .reshape(M, P, P)
     patches = torch.stack([px, py, pd], dim=1)
     return (imap_p.to(feats.imap.dtype), gmap_p.to(feats.fmap.dtype), clr,
             patches)

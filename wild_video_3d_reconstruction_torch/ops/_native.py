@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All sources under `csrc/` are compiled by ONE `nvcc` call for `sm_90a` into
-one shared library with a plain C interface, loaded with `ctypes`. The
+All sources under `csrc/` are compiled for `sm_90a` into one shared library
+with a plain C interface, loaded with `ctypes`: one `nvcc -c` per source,
+all started together, then one link. The
 build happens at first use, into `build/torch_kernels/` at the repository
 root, under a file name that carries a hash of the sources and flags, so an
 unchanged tree reuses its library. A missing `nvcc` or a failed build is an
@@ -37,7 +38,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"corr_pyramid": 0, "runsum": 0, "corr_region_fused_x32": 0,
+LAUNCHES = {"corr_pyramid": 0, "corr_pyramid_backward": 0, "runsum": 0, "corr_region_fused_x32": 0,
             "corr_region_fused_x16": 0, "corr_region_surfaces": 0,
             "corr_region_extract": 0, "chol_solve": 0}
 
@@ -46,6 +47,7 @@ LAUNCHES = {"corr_pyramid": 0, "runsum": 0, "corr_region_fused_x32": 0,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "wv3d_corr_pyramid": [_P] * 8 + [_I] * 6 + [_P],
+    "wv3d_corr_pyramid_backward": [_P] * 11 + [_I] * 5 + [_P],
     "wv3d_runsum": [_P] * 5 + [_I] * 2 + [_P],
     "wv3d_runsum_tile": [],
     "wv3d_corr_region_fused_x32": [_P] * 9 + [_I] * 6 + [_P],
@@ -121,18 +123,38 @@ def build():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(objdir, src.stem + ".o")
+            cmd = [_nvcc(), *compile_flags, "-c", str(src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            out_text = proc.communicate()[0]
+            log.append(out_text)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} ({proc.returncode})\n"
+                              f"{out_text}")
+        if not failed:
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} ({proc.returncode})\n"
+                              f"{proc.stdout}\n{proc.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
-    BUILD_INFO.update(path=str(out), seconds=seconds,
-                      log=proc.stdout + proc.stderr)
+    BUILD_INFO.update(path=str(out), seconds=seconds, log="".join(log))
     return out
 
 
@@ -164,8 +186,14 @@ def on_cuda(*tensors):
 
 def require_cuda(name, *tensors, dtypes=None):
     """Raise unless every tensor is contiguous on one CUDA device, 16-byte
-    aligned and (when given) of an accepted dtype."""
+    aligned and (when given) of an accepted dtype, and none needs a
+    gradient: a raw launch records no backward, so it would drop one
+    silently (the correlation's gradient goes through its
+    `torch.autograd.Function`, `ops/corr.py`)."""
     dev = tensors[0].device
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: an input needs a gradient, and this "
+                         "kernel has no backward")
     for t in tensors:
         if t.device != dev or not t.is_cuda:
             raise ValueError(f"{name}: all tensors must be on one CUDA "

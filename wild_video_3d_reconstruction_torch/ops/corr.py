@@ -18,6 +18,14 @@ over a (2R+2)x(2R+2) window (zero outside the map), blended bilinearly to
     launch) or raises. With fused=True it takes the region route of
     `ops/corr_region.py` (`PALLAS_FUSED`), which launches the same body and
     also returns the region spill flags.
+  * gradients: on CUDA tensors `corr_lookup` goes through an autograd
+    Function whose backward launches the hand-written adjoint of the
+    correlation body, `csrc/corr_grad.cu` (`corr_pyramid_backward`), for
+    fp32 features; it returns the gradients of gmap and both maps. The
+    coordinates get none (the training forward detaches them), so a call
+    whose coords need a gradient raises, as do bf16 features that need
+    one. On CPU tensors autograd differentiates the plain version
+    (`corr_pyramid_backward_plain`).
   * `box_plan`: the kernel's choice, per edge and level, of the pixels it
     takes from the staged box and those it takes per pixel from the map
     (the result does not depend on it; `chip_smoke.py` reports the share).
@@ -177,6 +185,88 @@ class KernelArgs:
                 _native.stream_ptr(self.coords.device))
 
 
+def _launch_pyramid(a, out):
+    err = _native.lib().wv3d_corr_pyramid(*a.pointers(), out.data_ptr(),
+                                          *a.sizes())
+    _native.check_launch("wv3d_corr_pyramid", err)
+    _native.LAUNCHES["corr_pyramid"] += 1
+
+
+def corr_pyramid_backward_plain(grad_out, gmap, pyramid, coords, kk, jj,
+                                valid):
+    """(grad_gmap, grad_fmap1, grad_fmap2) of <grad_out, corr> through
+    the plain version (autograd), fp32: the reference of the kernel."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_() for t in
+                  (gmap, *pyramid)]
+        out = patch_corr_pyramid(leaves[0], tuple(leaves[1:]),
+                                 coords.detach(), kk, jj, valid=valid)
+        if not out.requires_grad:       # no valid edge: nothing reaches out
+            return tuple(torch.zeros_like(t) for t in leaves)
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
+def corr_pyramid_backward(grad_out, gmap, pyramid, coords, kk, jj, valid):
+    """The adjoint of the correlation: grad_out [E, 882] fp32 ->
+    (grad_gmap [S, 128, 3, 3], grad_fmap1, grad_fmap2), fp32, for fp32
+    features. CPU tensors take the plain version; CUDA tensors launch
+    `csrc/corr_grad.cu` (zero-initialised outputs, fp32 atomics)."""
+    if not _native.on_cuda(grad_out, gmap, *pyramid, coords):
+        return corr_pyramid_backward_plain(grad_out, gmap, pyramid, coords,
+                                           kk, jj, valid)
+    a = KernelArgs("corr_pyramid_backward", gmap, pyramid, coords, kk, jj,
+                   valid)
+    grad_out = grad_out.float().contiguous()
+    _native.require_cuda("corr_pyramid_backward", grad_out, a.gmap, a.fmap1,
+                         a.fmap2, dtypes=((torch.float32,),) * 4)
+    E = a.coords.shape[0]
+    if tuple(grad_out.shape) != (E, 882):
+        raise ValueError(f"corr_pyramid_backward: grad_out has shape "
+                         f"{tuple(grad_out.shape)}, not ({E}, 882)")
+    grads = [torch.zeros_like(t) for t in (a.gmap, a.fmap1, a.fmap2)]
+    if E == 0:
+        return tuple(grads)
+    sizes = a.sizes()
+    err = _native.lib().wv3d_corr_pyramid_backward(
+        grad_out.data_ptr(), *a.pointers(), *(g.data_ptr() for g in grads),
+        *sizes[:5], sizes[6])
+    _native.check_launch("wv3d_corr_pyramid_backward", err)
+    _native.LAUNCHES["corr_pyramid_backward"] += 1
+    return tuple(grads)
+
+
+class _CorrPyramid(torch.autograd.Function):
+    """The correlation body on the card, with its adjoint kernel as the
+    backward (gradients of gmap, fmap1 and fmap2)."""
+
+    @staticmethod
+    def forward(ctx, gmap, fmap1, fmap2, coords, kk, jj, valid):
+        if ctx.needs_input_grad[3]:
+            raise ValueError("corr_lookup: coords need a gradient, which "
+                             "the correlation kernel does not compute")
+        if any(ctx.needs_input_grad[:3]) and any(
+                t.dtype != torch.float32 for t in (gmap, fmap1, fmap2)):
+            raise TypeError("corr_lookup: the backward kernel takes fp32 "
+                            "features only")
+        a = KernelArgs("corr_lookup", gmap, (fmap1, fmap2), coords, kk, jj,
+                       valid)
+        out = torch.empty((a.coords.shape[0], 882), dtype=torch.float32,
+                          device=coords.device)
+        if out.shape[0]:
+            _launch_pyramid(a, out)
+        ctx.save_for_backward(gmap, fmap1, fmap2, a.coords, a.kk, a.jj,
+                              a.valid)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        gmap, fmap1, fmap2, coords, kk, jj, valid = ctx.saved_tensors
+        grads = corr_pyramid_backward(grad_out, gmap, (fmap1, fmap2),
+                                      coords, kk, jj, valid)
+        return (*grads, None, None, None, None)
+
+
 def corr_lookup(gmap, pyramid, coords, kk, jj, valid, chunk=2048,
                 fused=False, variant="x32"):
     """[E, 882] correlation feature.
@@ -186,7 +276,8 @@ def corr_lookup(gmap, pyramid, coords, kk, jj, valid, chunk=2048,
     level-1 scale; kk in [0, S) and jj in [0, F); valid [E] bool.
 
     Unfused: the plain version (in blocks of `chunk` edges) for CPU
-    tensors, the correlation body of `csrc/corr_box.cu` for CUDA tensors.
+    tensors, the correlation body of `csrc/corr_box.cu` for CUDA tensors
+    (differentiable in gmap and the maps, `_CorrPyramid`).
     fused=True: the region route of `variant` (`ops/corr_region.py`, whose
     plain version blocks by its own `CHUNK`), which computes the same
     function.
@@ -198,13 +289,5 @@ def corr_lookup(gmap, pyramid, coords, kk, jj, valid, chunk=2048,
     if not coords.is_cuda:
         return patch_corr_pyramid(gmap, pyramid, coords, kk, jj,
                                   valid=valid, chunk=chunk)
-    a = KernelArgs("corr_lookup", gmap, pyramid, coords, kk, jj, valid)
-    E = a.coords.shape[0]
-    out = torch.empty((E, 882), dtype=torch.float32, device=coords.device)
-    if E == 0:
-        return out
-    err = _native.lib().wv3d_corr_pyramid(*a.pointers(), out.data_ptr(),
-                                          *a.sizes())
-    _native.check_launch("wv3d_corr_pyramid", err)
-    _native.LAUNCHES["corr_pyramid"] += 1
-    return out
+    fmap1, fmap2 = pyramid
+    return _CorrPyramid.apply(gmap, fmap1, fmap2, coords, kk, jj, valid)

@@ -1,7 +1,6 @@
 """Rendered synthetic worlds with exact ground truth (numpy only).
 
-The port's own copy of the JAX package's `train/synth.py`, without its
-training batch maker (`make_world_batch`, Queue 1 item 15): a textured
+The port's own copy of the JAX package's `train/synth.py`: a textured
 piecewise-planar world seen by a moving camera, so images, poses, the
 1/4-resolution disparities and the full-resolution depth
 (`_PlaneWorld._surface`) agree to machine precision; `render(occ=)` adds
@@ -13,6 +12,7 @@ package's bitwise (`tests/test_torch_synth.py`).
   render_sequence  a long walk / orbit / out-and-back / multi-loop
                    trajectory over a multi-plane world (the SLAM
                    evaluation input of `eval/synth_ate.py`)
+  make_world_batch a batch of clips in the training step's layout
 """
 
 from __future__ import annotations
@@ -343,3 +343,20 @@ def render_sequence(seed, frames=60, ht=48, wd=64, fx=40.0, fy=40.0,
             images[k], _ = world.render(Rk, tk)
             poses[k] = _pose7(Rk, tk)
     return images, poses, world.intrinsics()
+
+
+def make_world_batch(seed, batch_size, tc, ht=48, wd=64, harden=False):
+    """Batch of rendered clips in the training step's layout (numpy):
+    images [B, T, H, W, 3] uint8, poses [B, T, 7], disps [B, T, H/4, W/4],
+    intrinsics [B, 4]; T = tc.frames."""
+    rng = np.random.default_rng(seed)
+    ims, ps, ds, it = [], [], [], []
+    for _ in range(batch_size):
+        a, b, c, d = render_clip(rng, frames=tc.frames, ht=ht, wd=wd,
+                                 harden=harden)
+        ims.append(a)
+        ps.append(b)
+        ds.append(c)
+        it.append(d)
+    return {"images": np.stack(ims), "poses": np.stack(ps),
+            "disps": np.stack(ds), "intrinsics": np.stack(it)}

@@ -1,7 +1,7 @@
 """The port needs nothing that the GPU machine lacks.
 
-In a fresh interpreter with `jax`, `yaml`, `cv2` and the JAX package
-blocked, every module of `wild_video_3d_reconstruction_torch` and the
+In a fresh interpreter with `jax`, `optax`, `yaml`, `cv2` and the JAX
+package blocked, every module of `wild_video_3d_reconstruction_torch` and the
 `chip_smoke` module import, the configs load, and a DPVO builds and tracks
 frames on the CPU, through the steady step (chunked) and `sync_mode`,
 with a depth prior and a mask on some frames and with keypoint patches;
@@ -13,9 +13,14 @@ descriptors from the steady step, the native "dbow" retrieval built from
 self-calibration's frame selection (`select_frames`: the Farneback flow
 without cv2), the bootstrap's `track_grid` and a 3-frame `DenseVO` (both
 flows) run; one training step and one held-out evaluation of
-`eval/learn_synth.py` run on the CPU. A
-static scan of the port's sources backs this up for lazy imports inside
-functions: cv2 only inside the readers of `io/stream.py`.
+`eval/learn_synth.py` run on the CPU; PNG frames write and read back
+(`io/png.py`), the NeRF trainers (plain and refined, with the eval-pose
+alignment) take two steps, a field saves, loads and renders a path to
+PNGs and a point cloud, and `prepare` turns the COLMAP model above into a
+transforms.json that `load_transforms` reads. A static scan of the port's
+sources backs this up for lazy imports inside functions: cv2 only inside
+functions of `io/stream.py` (JPEG, undistortion, video),
+`nerf/train_native.py` and `nerf/render.py` (non-PNG images, mp4).
 """
 
 import ast
@@ -26,7 +31,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "wild_video_3d_reconstruction_torch"
-BLOCKED = ("jax", "jaxlib", "yaml", "cv2", "wild_video_3d_reconstruction_tpu")
+BLOCKED = ("jax", "jaxlib", "optax", "yaml", "cv2",
+           "wild_video_3d_reconstruction_tpu")
+CV2_INSIDE = ("io/stream.py", "nerf/train_native.py", "nerf/render.py")
 
 SCRIPT = """
 import sys
@@ -91,6 +98,42 @@ with tempfile.TemporaryDirectory() as tmp:
     out = export.save_output_for_colmap(tmp + "/colmap", est, tstamps, pts,
                                         clr, 40.0, 40.0, 32.0, 24.0, 48, 64)
     assert len(colmap_model.read_model(out)[1]) == 12
+    # PNG frames, prepare and the NeRF back half
+    from wild_video_3d_reconstruction_torch.io import png
+    from wild_video_3d_reconstruction_torch.nerf import prepare
+    from wild_video_3d_reconstruction_torch.nerf import render as nrender
+    from wild_video_3d_reconstruction_torch.nerf import train_native
+    import os
+    os.makedirs(tmp + "/images")
+    for t in range(12):
+        png.write_png(f"{{tmp}}/images/frame_{{t:06d}}.png", images[t])
+        assert (png.read_png(f"{{tmp}}/images/frame_{{t:06d}}.png")
+                == images[t]).all()
+    tf = prepare.generate_nf_transform(out, tmp + "/nerf",
+                                       image_dir="../images")
+    data = train_native.load_transforms(tmp + "/nerf")
+    assert data[0].shape == (12, 48, 64, 3)
+    tiny = dict(steps=2, batch=64, levels=2, table_size=2 ** 8, max_res=16,
+                eval_every=2, holdout=6, log=lambda *a: None, device="cpu")
+    field, rep = train_native.train(*data, n_samples=4, **tiny)
+    params, rep = train_native.train_refine(
+        *data, n_coarse=4, n_fine=2, app_dim=2, eval_align=True,
+        align_steps=1, **tiny)
+    assert np.isfinite(rep["psnr_aligned"])
+    meta = dict(refine=True, contract=False, levels=2, table_size=2 ** 8,
+                max_res=16, app_dim=2, n_train=int(params.app.shape[0]),
+                center=np.asarray(rep["center"]).tolist(),
+                scale=float(rep["scale"]), near=rep["near"], far=rep["far"],
+                convention=data[3], samples=4)
+    nrender.save_field(params, meta, tmp + "/field", 2)
+    field, meta = nrender.load_field(tmp + "/field", device="cpu")
+    frames = nrender.render_path(field, meta, data[1][:2], data[2][0],
+                                 (48, 64), out_dir=tmp + "/renders",
+                                 log=lambda *a: None)
+    assert frames.shape == (2, 48, 64, 3)
+    assert nrender.export_pointcloud(field, meta, data[1][:1], data[2][:1],
+                                     (48, 64), tmp + "/cloud.ply",
+                                     acc_thresh=0.0) == 48 * 64
 # the loop closure, with the native retrieval backend
 from wild_video_3d_reconstruction_torch import native
 assert native.neighbors([0, 0], [1, 0])[0].tolist() == [1, -1]
@@ -163,22 +206,25 @@ def _imports(path):
 
 def test_port_sources_never_import_jax_or_the_jax_package():
     """Also the imports inside functions, which an import alone does not
-    run (cv2 only inside the functions of `io/stream.py`)."""
+    run (cv2 only inside functions of the files of CV2_INSIDE)."""
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     cv2_lines = set()
     for f in files:
         for mod, line in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "yaml",
+            assert top not in ("jax", "jaxlib", "optax", "yaml",
                                "wild_video_3d_reconstruction_tpu"), \
                 f"{f.relative_to(ROOT)}:{line} imports {mod}"
             if top == "cv2":
-                assert f == PKG / "io" / "stream.py", \
-                    f"{f}:{line} imports cv2"
-                cv2_lines.add(line)
-    stream = ast.parse((PKG / "io" / "stream.py").read_text())
-    inside = {n.lineno for fn in ast.walk(stream)
-              if isinstance(fn, ast.FunctionDef) for n in ast.walk(fn)
-              if isinstance(n, ast.Import)}
-    assert cv2_lines and cv2_lines <= inside
+                rel = f.relative_to(PKG).as_posix() if PKG in f.parents \
+                    else str(f)
+                assert rel in CV2_INSIDE, f"{f}:{line} imports cv2"
+                cv2_lines.add((rel, line))
+    for rel in CV2_INSIDE:
+        tree = ast.parse((PKG / rel).read_text())
+        inside = {n.lineno for fn in ast.walk(tree)
+                  if isinstance(fn, ast.FunctionDef) for n in ast.walk(fn)
+                  if isinstance(n, ast.Import)}
+        lines = {line for r, line in cv2_lines if r == rel}
+        assert lines and lines <= inside, rel

@@ -40,14 +40,18 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
         sync_mode=False, depthdir=None, maskdir=None, timeit=False,
         save_reconstruction=False, export_colmap=False, plot=False,
         viz=False, rerun=False, checkpoint_every=0, resume=None,
-        loop_enabled=False):
+        loop_enabled=False, timings=None):
     """Run VO over the images of `imagedir` (with the depth maps of
     `depthdir` and the masks of `maskdir`) or over the video file
     `imagedir`, and write the outputs asked for under `path`; returns
     (poses c2w [T, 7], tstamps, (points [K, 3], colors [K, 3])).
     sync_mode: the synchronous steady path (`slam.dpvo`), also taken with
     viz or rerun. loop_enabled: the loop closure (also with the config's
-    loop_enabled)."""
+    loop_enabled). timings: a dict that gets the seconds of tracking
+    (through terminate) as "track" and of writing the outputs as
+    "outputs"."""
+    import time
+
     import torch
 
     from .io import export, stream
@@ -55,6 +59,7 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
     from .slam.checkpoint import load_slam, save_slam
     from .utils.timer import Timer, timing_summary
 
+    t_start = time.perf_counter()
     loop = loop_enabled or cfg.loop_enabled
     if loop and (checkpoint_every or resume):
         raise NotImplementedError(
@@ -118,6 +123,7 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
     poses, tstamps = slam.terminate()
     if timeit:
         timing_summary()
+    t_outputs = time.perf_counter()
 
     Path(path).mkdir(parents=True, exist_ok=True)
     name = Path(imagedir).stem
@@ -139,6 +145,9 @@ def run(cfg, network, imagedir, calib, stride=1, skip=0, end=None,
             fx, fy, cx, cy, slam.ht, slam.wd)
         with open(f"{path}/config.yaml", "w") as f:
             f.write(cfg.dump())
+    if timings is not None:
+        timings["track"] = t_outputs - t_start
+        timings["outputs"] = time.perf_counter() - t_outputs
     return poses, tstamps, (points, colors)
 
 

@@ -7,8 +7,10 @@ clipped at 10x its median. A `Prefetcher` decodes in a daemon thread
 into a bounded queue, ahead of the tracker; with `pin=True` it also
 copies each image into a pinned torch tensor.
 
-OpenCV is imported inside the readers, so the package imports without
-it (the card's machine has no `cv2`).
+PNG frames and masks are decoded by `io/png.py` (bitwise `cv2.imread`)
+on every device; JPEG frames, undistortion and video need OpenCV, which
+is imported inside those readers only, so the package imports without it
+(the card's machine has no `cv2`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from itertools import chain
 from pathlib import Path
 
 import numpy as np
+
+from . import png
 
 IMG_EXTS = ("*.png", "*.jpeg", "*.jpg")
 SENTINEL = (-1, None, None, None, None)
@@ -39,15 +43,24 @@ def list_images(imagedir, stride=1, skip=0, end=None):
     return _globbed(imagedir, IMG_EXTS, skip, end, stride)
 
 
+def _imread(path, flags):
+    """`cv2.imread(path, flags)`: `io/png.py` for a PNG, else cv2."""
+    if Path(path).suffix.lower() == ".png":
+        return png.read_png(path, flags)
+    import cv2
+
+    return cv2.imread(str(path), flags)
+
+
 def read_image(imfile, calib=None):
     """One image file as BGR uint8 (None if it cannot be read),
     undistorted when calib [fx, fy, cx, cy, k1, ...] has distortion
     terms."""
-    import cv2
-
-    image = cv2.imread(str(imfile), cv2.IMREAD_COLOR)
+    image = _imread(imfile, png.IMREAD_COLOR)
     calib = _calib(calib) if calib is not None else ()
     if image is not None and len(calib) > 4:
+        import cv2
+
         fx, fy, cx, cy = calib[:4]
         K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
         image = cv2.undistort(image, K, calib[4:])
@@ -57,8 +70,6 @@ def read_image(imfile, calib=None):
 def image_frames(imagedir, depthdir=None, maskdir=None, calib=None,
                  stride=1, skip=0, end=None):
     """Yield (t, image BGR u8, depth|None, mask|None, intrinsics[4])."""
-    import cv2
-
     calib = _calib(calib)
     fx, fy, cx, cy = calib[:4]
 
@@ -79,7 +90,7 @@ def image_frames(imagedir, depthdir=None, maskdir=None, calib=None,
             depth = np.minimum(depth, 10 * med)
         mask = None
         if masks:
-            mask = cv2.imread(str(masks[t]), cv2.IMREAD_GRAYSCALE)
+            mask = _imread(masks[t], png.IMREAD_GRAYSCALE)
             mask = mask[:h - h % 16, :w - w % 16].astype(bool)
         yield t, image, depth, mask, np.array([fx, fy, cx, cy])
 

@@ -8,10 +8,10 @@ package's parameter tree: the orbax checkpoint it was exported from,
 tensor for tensor, `tests/test_torch_weights.py`), every frame kept, fp32
 features;
 the port gets the JAX run's patch centres and inverse depths and its VLAD
-centres (jax.random cannot be reproduced in torch). The JAX loop closure
-caches frames losslessly (a subclass of its ImageCache, below: the port
-keeps raw frames, ROADMAP R8) and draws RANSAC samples from the same
-numpy generator as the port (R9).
+centres (jax.random cannot be reproduced in torch). Both loop closures
+cache their keyframes as JPEG-95 (cv2, the same bytes) and find their
+keypoints on the decoded frames; the JAX one draws RANSAC samples from
+the same numpy generator as the port (R9).
 
   components   the whole loop's JAX run, its replayed state before
                terminate carried into a new port DPVO and given to a new
@@ -74,21 +74,7 @@ TOL_PGO = 1e-4
 TOL_TRAJ = 1e-2
 TOL_DESC_COS = 0.999
 RANSAC_SEED = 0           # the port's default: the DPVO seed
-PAIR = (LAP - 2, 2)       # the revisit the run's retrieval proposes
-
-
-class LosslessCache(ImageCache):
-    """The JAX loop closure's cache without the JPEG round trip."""
-
-    def __init__(self):
-        super().__init__(async_encode=False)
-
-    def _encode(self, n, img):
-        self.saved[n] = np.asarray(img)
-
-    def load_frames(self, indices):
-        return np.stack([self.saved[i] if i in self.saved else
-                         np.asarray(self.buffer[i]) for i in indices])
+PAIR = (LAP - 1, 1)       # the revisit the run closes (on JPEG-95 frames)
 
 
 def jax_tree(path):
@@ -125,16 +111,19 @@ def scene():
 
 
 def jax_run(scene):
-    """The JAX package's asynchronous run with its loop closure (lossless
-    cache, RANSAC from the shared generator); returns (slam, lc,
-    recorder)."""
+    """The JAX package's asynchronous run with its loop closure (RANSAC
+    from the shared generator); returns (slam, lc, recorder). Its cache
+    encodes at the commit (`async_encode=False`): the JAX closure checks a
+    frame's presence on the encoded bytes, so with its encoder thread the
+    candidates it takes hang on that thread's progress; the port checks
+    the commit (ROADMAP R8), which is what the synchronous cache shows."""
     images, intr, params, _ = scene
     cfg = JConfig(**CFG)
     slam = JDPVO(cfg, params, HT, WD, seed=0, sync_mode=False)
     slam.state = jstate.init_state(cfg, HT, WD, feat_dtype=jnp.float32,
                                    seed=0)
     lc = jlong.LongTermLoopClosure(cfg, slam)
-    lc.imcache = LosslessCache()
+    lc.imcache = ImageCache(async_encode=False)
     slam.loop_closure = lc
     rec = record(lc)
     for t, img in enumerate(images):
@@ -235,8 +224,9 @@ def component_checks(scene, js, vlad, shared_ransac):
     saved = js.state, dict(js.delta)
     jlc = jlong.LongTermLoopClosure(JConfig(**dict(CFG, **over)), js,
                                     vlad=vlad)
-    jlc.imcache = LosslessCache()
-    jlc.imcache.saved = {k: images[k] for k in range(n)}
+    jlc.imcache = ImageCache(async_encode=False)
+    for k in range(n):
+        jlc.imcache._encode(k, images[k])
     cfg = TConfig(**dict(CFG, **over))
     ts = TDPVO(cfg, params, HT, WD, seed=0, device="cpu", sync_mode=True,
                vlad=TVLAD(centers=np.asarray(vlad.centers)))
@@ -251,7 +241,9 @@ def component_checks(scene, js, vlad, shared_ransac):
     ts.n_host, ts.counter = js.n_host, js.counter
     ts.tstamps[:] = js.tstamps
     tlc = ts.loop_closure
-    tlc.imcache.saved = {k: np.array(images[k]) for k in range(n)}
+    for k in range(n):
+        tlc.imcache._encode(k, images[k])
+    assert tlc.imcache.saved == jlc.imcache.saved      # the same JPEG bytes
     out = {"n": n}
     i, j = PAIR
     with one_thread():
@@ -382,13 +374,16 @@ def test_async_descriptors_match_sync(pair):
 
 
 def test_async_image_cache_matches_sync(pair):
+    """The JPEG-95 encodings run in the cache's worker thread: flushed
+    first, as `tests/test_loop_async.py` reads the JAX caches."""
     (a, la), (_, lb) = pair
+    la.imcache.flush()
+    lb.imcache.flush()
     assert set(la.imcache.saved) == set(lb.imcache.saved)
     if not a.delta:
         assert len(la.imcache.saved) > 0
     for n in la.imcache.saved:
-        np.testing.assert_array_equal(la.imcache.saved[n],
-                                      lb.imcache.saved[n])
+        assert la.imcache.saved[n] == lb.imcache.saved[n], n
 
 
 def test_async_bookkeeping_matches_sync(pair):

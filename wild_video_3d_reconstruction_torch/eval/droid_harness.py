@@ -26,11 +26,25 @@ with them on eviction).
 
 `network` (a `VONet`, a `.pth` path, the JAX package's parameter tree,
 or None for weights drawn from seed 0, which is not the JAX package's
-`init_vonet(PRNGKey(0))`) serves the "corr" flow. The TUM protocol
-(`run_tum`, `main`) waits for the evaluation harness (`eval/harness.py`).
+`init_vonet(PRNGKey(0))`) serves the "corr" flow.
+
+The TUM protocol (`run_tum`, `main`; the reference's
+`droid_eva_tum.py:16-136`) streams each scene through `eval/harness.py`'s
+`tum_stream` into a `DenseVO` and reports the median ATE RMSE of the
+trials. Decided difference (R23 in ROADMAP.md): the JAX `run_tum` takes
+the median over the `(rmse, n)` tuples that `metrics.ate_rmse` returns,
+so it mixes the association count into the ATE ((rmse + n) / 2 with one
+trial); the port takes the median of the rmse values.
+
+Run (from the repository root):
+
+    python -m wild_video_3d_reconstruction_torch.eval.droid_harness tum \
+        --datapath /data/TUM-RGBD [--frames 100] [--device cpu]
 """
 
 from __future__ import annotations
+
+import argparse
 
 import numpy as np
 import torch
@@ -340,3 +354,60 @@ class DenseVO:
         """(poses c2w [n, 7] numpy, timestamps [n] float64)."""
         c2w = lie.se3_inv(self.poses[:self.n]).cpu().numpy()
         return c2w, np.asarray(self.tstamps, np.float64)
+
+
+# ---------------------------------------------------------------------------
+# TUM protocol (mirrors droid_eva_tum.py:16-136)
+# ---------------------------------------------------------------------------
+
+def run_tum(datapath, scenes=None, trials=1, stride=2, frames=None,
+            network=None, device="cuda", log=print, **vo_kw):
+    """{scene: median ATE RMSE of the trials}; frames: stop once DenseVO
+    holds that many frames; vo_kw: more `DenseVO` arguments."""
+    from . import metrics
+    from .harness import TUM_FR1_SCENES, tum_stream
+
+    scenes = scenes or TUM_FR1_SCENES
+    results = {}
+    for scene in scenes:
+        errs = []
+        for _ in range(trials):
+            vo = None
+            for t, img, intr in tum_stream(f"{datapath}/{scene}",
+                                           stride=stride):
+                if vo is None:
+                    vo = DenseVO(img.shape[0], img.shape[1], intr,
+                                 network=network, device=device, **vo_kw)
+                vo(t, img)
+                if frames and len(vo.tstamps) >= frames:
+                    break
+            poses, ts = vo.terminate()
+            gt_p, gt_t = metrics.load_tum_groundtruth(
+                f"{datapath}/{scene}/groundtruth.txt")
+            rmse, _ = metrics.ate_rmse(poses, ts, gt_p, gt_t)
+            errs.append(rmse)
+        results[scene] = float(np.median(errs))
+        log(f"{scene}: ATE {results[scene]:.4f}")
+    log("mean:", float(np.mean(list(results.values()))))
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("dataset", choices=["tum"])
+    ap.add_argument("--datapath", required=True)
+    ap.add_argument("--trials", type=int, default=1)
+    ap.add_argument("--stride", type=int, default=2)
+    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--network", default=None,
+                    help="DPVO-layout .pth (default: weights from seed 0)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; cuda unless 'cpu' is asked for")
+    args = ap.parse_args(argv)
+    return run_tum(args.datapath, trials=args.trials, stride=args.stride,
+                   frames=args.frames, network=args.network,
+                   device=args.device)
+
+
+if __name__ == "__main__":
+    main()

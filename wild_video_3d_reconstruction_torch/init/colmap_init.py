@@ -22,12 +22,10 @@ the essential-model residual; principal point at the image centre).
                      the entry point: writes `estimated_calib.txt` and
                      `calib_confidence.json` under `path`
 
-Decided difference (R13 in ROADMAP.md): when every pair is
-Bougnoux-degenerate, the JAX package scores a focal grid with cv2's
-5-point `findEssentialMat` + `recoverPose`; the port (no cv2 on the
-card's machine) scores it with the shared 8-point `essential_ransac` +
-`recover_pose` of `init/epipolar.py` at the same 1.5 px threshold, as a
-squared Sampson threshold in normalized units, (1.5 / f)^2.
+When every pair is Bougnoux-degenerate, the focal grid is scored with
+cv2's 5-point `findEssentialMat` + `recoverPose`, as in the JAX package
+(OpenCV imported there only: the card's machine has 4.13; without it
+that fallback raises ImportError).
 
 If pycolmap is installed, its incremental SfM is tried first (a gated
 import, as in the JAX package). Decided difference R16: only pycolmap's
@@ -44,8 +42,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .epipolar import (essential_ransac, focal_from_fundamental,
-                       fundamental_ransac, recover_pose)
+from ..io.stream import require_cv2
+from .epipolar import focal_from_fundamental, fundamental_ransac
 from .farneback import (bgr_to_gray, farneback_flow, laplacian_var,
                         resize_linear)
 
@@ -213,26 +211,32 @@ def estimate_focal(pairs, hw, focal_grid=None, refine=True):
     return best_f, cx, cy
 
 
-def _score_focal_grid(pairs, focal_grid, cx, cy, thresh_px=1.5):
-    """(best f, its score) over focal_grid: each pair with at least 10
-    essential-RANSAC inliers at the focal adds the share of its matches
-    that are inliers in front of both cameras (R13)."""
+def _score_focal_grid(pairs, focal_grid, cx, cy):
+    """(best f, its score) over focal_grid, as the JAX package scores it:
+    each pair with at least 10 inliers of cv2's 5-point
+    `findEssentialMat` (RANSAC, 1.5 px) at the focal adds the share of
+    its matches that `recoverPose` puts in front of both cameras. Needs
+    OpenCV; without it, raises ImportError."""
+    cv2 = require_cv2("init/colmap_init.py:_score_focal_grid (the "
+                      "degenerate focal fallback)")
     best_f, best_score = float(focal_grid[0]), -1.0
     for f in focal_grid:
+        K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1.0]])
         score = 0.0
-        for s, (p0, p1) in enumerate(pairs):
+        for p0, p1 in pairs:
             if len(p0) < 12:
                 continue
-            x0 = (np.asarray(p0, float) - [cx, cy]) / f
-            x1 = (np.asarray(p1, float) - [cx, cy]) / f
-            E, inl = essential_ransac(x0, x1, thresh=(thresh_px / f) ** 2,
-                                      seed=s)
-            if E is None or inl.sum() < 10:
+            p0 = np.asarray(p0, np.float64)
+            p1 = np.asarray(p1, np.float64)
+            E, inl = cv2.findEssentialMat(p0, p1, K, method=cv2.RANSAC,
+                                          prob=0.999, threshold=1.5)
+            if E is None or inl is None:
                 continue
-            R, t, X = recover_pose(E, x0[inl], x1[inl])
-            z2 = X @ R[2] + t[2]
-            front = int(np.sum((X[:, 2] > 0) & (z2 > 0)))
-            score += front / max(len(p0), 1)
+            if int(inl.sum()) < 10:
+                continue
+            # cheirality check strengthens the focal signal
+            _, R, t, mask = cv2.recoverPose(E, p0, p1, K, mask=inl.copy())
+            score += float(mask.sum()) / max(len(p0), 1)
         if score > best_score:
             best_score, best_f = score, float(f)
     return best_f, best_score

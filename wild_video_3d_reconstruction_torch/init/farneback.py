@@ -1,9 +1,11 @@
 """The image operations of the self-calibration's frame selection.
 
 The JAX package selects calibration frames with OpenCV
-(`init/colmap_init.py:select_keyframes`); the card's machine has no cv2,
-so the port computes the same quantities with PyTorch on the frames'
-device:
+(`init/colmap_init.py:select_keyframes`), on the host. The port computes
+the same quantities with PyTorch on the frames' device, so the frames a
+run already holds on the card are selected there, with no copy back and
+no host image library (the card's machine does have OpenCV 4.13, whose
+calls would run on the host CPU; ROADMAP R14):
 
   bgr_to_gray     `cv2.cvtColor(img, COLOR_BGR2GRAY)` bit for bit: the
                   15-bit fixed-point weights (3735, 19235, 9798), rounded

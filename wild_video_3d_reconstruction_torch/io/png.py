@@ -1,6 +1,7 @@
 """PNG files without OpenCV: the port's counterpart of the `cv2.imread`
-and `cv2.imwrite` calls its image directories need (the card's machine
-has no `cv2`).
+and `cv2.imwrite` calls its image directories need, so that a directory
+of 8-bit PNGs is read and written with no image library (OpenCV is
+optional for the port; the card's machine has 4.13).
 
 `read_png` decodes non-interlaced 8-bit gray, gray + alpha, RGB and RGBA
 PNGs with all five scanline filters, and gives what `cv2.imread` gives
@@ -9,7 +10,8 @@ bitwise: `IMREAD_COLOR` is BGR (gray repeated, alpha dropped),
 rgb-to-gray, the weights OpenCV asks it for). Any other PNG (16-bit, a
 palette, fewer than 8 bits, Adam7 interlacing, a transparency chunk, an
 orientation or, for a color image read as gray, a gamma chunk) raises
-ValueError naming what it met. `write_png` writes gray or BGR uint8 that
+`UnsupportedPNG` (a ValueError) naming what it met; `io/stream.py` hands
+such files to `cv2.imread`. `write_png` writes gray or BGR uint8 that
 `cv2.imread` reads back bitwise.
 """
 
@@ -35,6 +37,10 @@ _COLOR_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray + alpha",
 # / 9798, rounded): the two differ on about half of all pixels.
 _GRAY_R, _GRAY_G = 9797, 19234
 _GRAY_B = 32768 - _GRAY_R - _GRAY_G
+
+
+class UnsupportedPNG(ValueError):
+    """A valid PNG of a kind `read_png` does not decode."""
 
 
 def _chunks(data):
@@ -118,21 +124,21 @@ def read_png(path, flags=IMREAD_COLOR):
         raise ValueError(f"{path}: PNG without an IHDR chunk")
     w, h, depth, color, _, _, interlace = header
     if color not in _CHANNELS:
-        raise ValueError(f"{path}: {_COLOR_NAMES.get(color, color)} PNGs "
-                         "are not supported (8-bit gray, gray + alpha, "
-                         "RGB and RGBA only)")
+        raise UnsupportedPNG(f"{path}: {_COLOR_NAMES.get(color, color)} "
+                             "PNGs are not supported (8-bit gray, gray + "
+                             "alpha, RGB and RGBA only)")
     if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit PNG (8-bit only)")
+        raise UnsupportedPNG(f"{path}: {depth}-bit PNG (8-bit only)")
     if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG")
+        raise UnsupportedPNG(f"{path}: interlaced (Adam7) PNG")
     refused = {"tRNS", "eXIf"}
     if color & 2 and flags == IMREAD_GRAYSCALE:
         # libpng's gray conversion goes through gamma tables when the
         # file carries a gamma
         refused |= {"gAMA", "sRGB", "iCCP"}
     if other & refused:
-        raise ValueError(f"{path}: PNG with chunk(s) "
-                         f"{sorted(other & refused)}")
+        raise UnsupportedPNG(f"{path}: PNG with chunk(s) "
+                             f"{sorted(other & refused)}")
     bpp = _CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (1 + w * bpp):

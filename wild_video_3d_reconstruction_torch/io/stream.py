@@ -7,10 +7,12 @@ clipped at 10x its median. A `Prefetcher` decodes in a daemon thread
 into a bounded queue, ahead of the tracker; with `pin=True` it also
 copies each image into a pinned torch tensor.
 
-PNG frames and masks are decoded by `io/png.py` (bitwise `cv2.imread`)
-on every device; JPEG frames, undistortion and video need OpenCV, which
-is imported inside those readers only, so the package imports without it
-(the card's machine has no `cv2`).
+PNG frames and masks are decoded by `io/png.py` (bitwise `cv2.imread`
+for 8-bit PNGs); a PNG of another kind (16-bit, palette, interlaced),
+JPEG frames, undistortion and video go to OpenCV, as in the JAX package.
+OpenCV is imported inside those readers only, so the package imports
+without it and an image directory of 8-bit PNGs needs none; a reader
+that needs it and does not find it raises ImportError naming itself.
 """
 
 from __future__ import annotations
@@ -43,13 +45,25 @@ def list_images(imagedir, stride=1, skip=0, end=None):
     return _globbed(imagedir, IMG_EXTS, skip, end, stride)
 
 
-def _imread(path, flags):
-    """`cv2.imread(path, flags)`: `io/png.py` for a PNG, else cv2."""
-    if Path(path).suffix.lower() == ".png":
-        return png.read_png(path, flags)
-    import cv2
+def require_cv2(where):
+    """OpenCV, or an ImportError naming `where`, the function that needs
+    it (the port imports cv2 only at its points of use)."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{where} needs OpenCV (cv2)") from e
+    return cv2
 
-    return cv2.imread(str(path), flags)
+
+def _imread(path, flags):
+    """`cv2.imread(path, flags)`: `io/png.py` for the PNGs it decodes
+    (8-bit, bitwise cv2's), cv2 for any other file."""
+    if Path(path).suffix.lower() == ".png":
+        try:
+            return png.read_png(path, flags)
+        except png.UnsupportedPNG:
+            pass
+    return require_cv2("io/stream.py:_imread").imread(str(path), flags)
 
 
 def read_image(imfile, calib=None):
@@ -59,11 +73,10 @@ def read_image(imfile, calib=None):
     image = _imread(imfile, png.IMREAD_COLOR)
     calib = _calib(calib) if calib is not None else ()
     if image is not None and len(calib) > 4:
-        import cv2
-
         fx, fy, cx, cy = calib[:4]
         K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
-        image = cv2.undistort(image, K, calib[4:])
+        image = require_cv2("io/stream.py:read_image").undistort(
+            image, K, calib[4:])
     return image
 
 
@@ -98,8 +111,7 @@ def image_frames(imagedir, depthdir=None, maskdir=None, calib=None,
 def video_frames(videopath, calib, stride=1, skip=0):
     """Half-resolution video reader: every stride-th frame after skip,
     undistorted, resized by 0.5 (area), cropped to a multiple of 16."""
-    import cv2
-
+    cv2 = require_cv2("io/stream.py:video_frames")
     calib = _calib(calib)
     fx, fy, cx, cy = calib[:4]
     K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])

@@ -242,7 +242,7 @@ class LongTermLoopClosure:
 
     # ------------------------------------------------------------- closure
     def _have_frame(self, i):
-        return i in self.imcache.saved or i in self.imcache.buffer
+        return self.imcache.has(i)
 
     def attempt_loop_closure(self, n):
         """Drain retrieval's pending queries, verifying up to 4 candidates

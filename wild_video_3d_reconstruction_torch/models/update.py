@@ -20,7 +20,8 @@ from torch import nn
 
 from ..ops.segment import (segment_softmax_weighted_sum,
                            segment_softmax_weighted_sum_dense,
-                           segment_softmax_weighted_sum_runsum)
+                           segment_softmax_weighted_sum_runsum,
+                           segment_softmax_weighted_sum_table)
 from .layers import GradientClip, LayerNorm, Linear
 
 DIM = 384
@@ -46,8 +47,10 @@ class SoftAgg(nn.Module):
     """h(sum over the segment of softmax(g(x)) * f(x)), read back per row.
 
     The per-patch groups take the run-sum path when the caller holds their
-    segment sort (`order`); otherwise bounded segment counts take the
-    one-hot form and larger ones the scatter form, as in the JAX package.
+    segment sort (`order`), else the member-table form when it holds
+    their [S, cap] edge table (`table`); otherwise bounded segment counts
+    take the one-hot form and larger ones the scatter form, as in the JAX
+    package.
     """
 
     def __init__(self, g=None):
@@ -56,12 +59,16 @@ class SoftAgg(nn.Module):
         self.g = Linear(DIM, DIM, g)
         self.h = Linear(DIM, DIM, g)
 
-    def forward(self, x, seg_ids, num_segments, valid, order=None):
+    def forward(self, x, seg_ids, num_segments, valid, order=None,
+                table=None):
         f, g = self.f(x), self.g(x)
         if order is not None:
             y = segment_softmax_weighted_sum_runsum(f, g, seg_ids,
                                                     num_segments, order,
                                                     valid=valid)
+        elif table is not None:
+            y = segment_softmax_weighted_sum_table(f, g, table, seg_ids,
+                                                   valid)
         elif num_segments <= 4096:
             y = segment_softmax_weighted_sum_dense(f, g, seg_ids,
                                                    num_segments, valid=valid)
@@ -90,7 +97,8 @@ class UpdateOperator(nn.Module):
         self.w = nn.Sequential(nn.ReLU(), Linear(DIM, 2, g), GradientClip())
 
     def forward(self, net, inp, corr, kk_seg, ij_seg, nbr_ix, nbr_jx, valid,
-                num_kk_segments, num_ij_segments, kk_order=None):
+                num_kk_segments, num_ij_segments, kk_order=None,
+                kk_table=None):
         net = net + inp + self.corr(corr)
         net = self.norm(net)
 
@@ -101,7 +109,7 @@ class UpdateOperator(nn.Module):
         net = net + self.c2(mask_jx * net[nbr_jx.clamp(min=0)])
 
         net = net + self.agg_kk(net, kk_seg, num_kk_segments, valid,
-                                order=kk_order)
+                                order=kk_order, table=kk_table)
         net = net + self.agg_ij(net, ij_seg, num_ij_segments, valid)
         net = self.gru(net)
         delta = self.d(net)
@@ -110,9 +118,12 @@ class UpdateOperator(nn.Module):
 
 
 def update_forward(update, net, inp, corr, kk_seg, ij_seg, nbr_ix, nbr_jx,
-                   valid, num_kk_segments, num_ij_segments, kk_order=None):
+                   valid, num_kk_segments, num_ij_segments, kk_table=None,
+                   kk_order=None):
     """One update step over all edges -> (net', delta [E, 2], weight
     [E, 2]); the JAX package's `update_forward` with the module in place
-    of its parameter tree."""
+    of its parameter tree. kk_table: the per-patch groups' [S, cap] edge
+    table (`_group_by_patch`), taken when no kk_order is given."""
     return update(net, inp, corr, kk_seg, ij_seg, nbr_ix, nbr_jx, valid,
-                  num_kk_segments, num_ij_segments, kk_order=kk_order)
+                  num_kk_segments, num_ij_segments, kk_order=kk_order,
+                  kk_table=kk_table)

@@ -1,7 +1,8 @@
 """Segment operations with static segment counts.
 
 Counterpart of the JAX package's `ops/segment.py`: SoftAgg's
-scatter-softmax-sum over bounded segment ids with a validity mask, the
+scatter-softmax-sum over bounded segment ids with a validity mask (the
+one-hot, scatter, run-sum, member-table and sorted-cumsum forms), the
 patch-neighbour links of the update operator, and the stable compaction of
 the edge table.
 
@@ -81,6 +82,63 @@ def segment_softmax_weighted_sum_exact(f, g, seg_ids, num_segments,
     y = torch.zeros((num_segments, D), device=f.device).index_add_(
         0, seg, f.float() * w)
     return y[seg].to(f.dtype)
+
+
+def segment_softmax_weighted_sum_table(f, g, table, seg_ids, valid):
+    """SoftAgg's softmax-weighted sum through a per-segment edge table.
+
+    table [S, cap]: each segment's edge ids gathered into a row (E marks
+    an empty slot), as `ba/gauss_newton.py:_group_by_patch` builds it.
+    Every reduction is over axis 1 of the gathered [S, cap, D] rows, with
+    the per-segment max as the shift (the oracle's numerics). f, g
+    [E, D]; seg_ids [E] only serve the read-back: rows that are invalid
+    or whose segment is >= S read zeros. Off every path, as in the JAX
+    package (`slam/steps.py` passes no table)."""
+    E, D = f.shape
+    S = table.shape[0]
+    member = table < E                                    # [S, cap]
+    t = table.clamp(0, E - 1).long()
+    g_t = torch.where(member[..., None], g.float()[t], float("-inf"))
+    m = g_t.max(dim=1).values                             # [S, D]
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    e = torch.where(member[..., None], torch.exp(g_t - m[:, None]), 0.0)
+    denom = torch.clamp(e.sum(dim=1), min=1e-12)          # [S, D]
+    y_seg = (e * (f.float()[t] * member[..., None])).sum(dim=1) / denom
+    y_seg = torch.cat([y_seg, y_seg.new_zeros((1, D))])
+    sid = torch.where(valid & (seg_ids < S), seg_ids, S).long()
+    return y_seg[sid].to(f.dtype)
+
+
+def segment_softmax_weighted_sum_sorted(f, g, seg_ids, num_segments, order,
+                                        valid=None):
+    """SoftAgg's softmax-weighted sum through a precomputed segment sort:
+    one cumulative sum over the sorted rows and its differences at the
+    segment boundaries in place of scatter-adds.
+
+    order [E]: the stable argsort of where(valid & seg < num_segments,
+    seg_ids, num_segments), the table sort `slam/steps.py:update_op`
+    holds. The shift is the per-channel global max, as in the one-hot
+    form. Off every path, as in the JAX package (a measured dead end
+    there against the scatter form)."""
+    E, D = f.shape
+    valid = _valid(valid, E, f.device)
+    e = _global_shift(g.float(), valid)                   # [E, D]
+    key = torch.where(valid & (seg_ids < num_segments), seg_ids,
+                      num_segments).long()
+    key_s = key[order]
+    bounds = torch.searchsorted(
+        key_s, torch.arange(num_segments + 1, device=f.device))
+
+    def seg_sum_sorted(x):
+        c = torch.cat([x.new_zeros((1, D)), torch.cumsum(x[order], dim=0)])
+        return c[bounds[1:]] - c[bounds[:-1]]             # [S, D]
+
+    denom = seg_sum_sorted(e)
+    sid = key.clamp(0, num_segments - 1)
+    w = e / torch.clamp(denom[sid], min=1e-12)
+    y_seg = seg_sum_sorted(f.float() * w)
+    y = torch.where(valid[:, None], y_seg[sid], 0.0)
+    return y.to(f.dtype)
 
 
 def run_segment_sum_sorted_plain(fes, seg_sorted):

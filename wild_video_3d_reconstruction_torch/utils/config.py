@@ -3,7 +3,8 @@
 Same knob names, defaults and derived capacities as the JAX package's
 config, so `configs/*.yaml` load unchanged. The files are flat
 `KEY: value` lines with `#` comments, so a small parser of our own reads
-them and the port needs no YAML library.
+them and the port needs no YAML library; `parse_two_level_yaml` reads
+the dataset registry's `{name: {key: value}}` files the same way.
 """
 
 from __future__ import annotations
@@ -198,6 +199,86 @@ def parse_flat_yaml(text):
             raise ValueError(f"line {lineno}: unsupported YAML value "
                              f"{value!r}")
         out[key.strip()] = _scalar(value)
+    return out
+
+
+def _flow_list(text, lineno):
+    """A YAML flow sequence of scalars and nested sequences, `[1, [2, 3]]`,
+    as a list; anything else raises."""
+    tokens = [t for t in
+              text.replace("[", " [ ").replace("]", " ] ").replace(",", " , ")
+              .split()]
+    stack = [[]]
+    expect_item = True
+    for tok in tokens:
+        if tok == "[":
+            if not expect_item:
+                raise ValueError(f"line {lineno}: bad sequence {text!r}")
+            stack.append([])
+        elif tok == "]":
+            if len(stack) < 2:
+                raise ValueError(f"line {lineno}: bad sequence {text!r}")
+            inner = stack.pop()
+            stack[-1].append(inner)
+            expect_item = False
+        elif tok == ",":
+            if expect_item:
+                raise ValueError(f"line {lineno}: bad sequence {text!r}")
+            expect_item = True
+        else:
+            if not expect_item or tok[0] in "{|>&*!'\"":
+                raise ValueError(f"line {lineno}: unsupported YAML value "
+                                 f"{text!r}")
+            stack[-1].append(_scalar(tok))
+            expect_item = False
+    if len(stack) != 1 or len(stack[0]) != 1:
+        raise ValueError(f"line {lineno}: bad sequence {text!r}")
+    return stack[0][0]
+
+
+def parse_two_level_yaml(text):
+    """Parse `name:` lines, each followed by indented `key: value` lines,
+    into {name: {key: value}} (`name: {}` or a name with no keys gives an
+    empty dict). Values are scalars as `parse_flat_yaml` reads them, or
+    flow sequences of scalars (`[0, 100]`, `[[0, 10], [10, 20]]`); any
+    other YAML construct raises, so a file this parser cannot read is
+    never read wrongly."""
+    out = {}
+    name, indent = None, None
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        if ":" not in line:
+            raise ValueError(f"line {lineno}: not a 'KEY: value' line: "
+                             f"{raw!r}")
+        key, value = line.split(":", 1)
+        key, value = key.strip(), value.strip()
+        if value.startswith(("'", '"')):
+            end = value.find(value[0], 1)
+            value = value[:end + 1] if end > 0 else value
+        elif value.startswith("#"):
+            value = ""
+        elif " #" in value:
+            value = value.split(" #", 1)[0].strip()
+        if not raw[:1].isspace():
+            if value not in ("", "{}"):
+                raise ValueError(f"line {lineno}: a top-level entry takes "
+                                 f"indented keys: {raw!r}")
+            name, indent = key, None
+            out[name] = {}
+            continue
+        lead = len(raw) - len(raw.lstrip())
+        if name is None or raw[:lead].count("\t") or \
+                (indent is not None and lead != indent):
+            raise ValueError(f"line {lineno}: unexpected indentation: "
+                             f"{raw!r}")
+        indent = lead
+        if value == "" or value[0] in "{|>&*!":
+            raise ValueError(f"line {lineno}: unsupported YAML value "
+                             f"{value!r}")
+        out[name][key] = _flow_list(value, lineno) if value[0] == "[" \
+            else _scalar(value)
     return out
 
 

@@ -124,6 +124,24 @@ against the CPU, and the demo on a JPEG directory and an .mp4 through
 `scripts/torch_cv2_report.py --demo` (`demo_cv2_inputs`: OpenCV's
 version and video backend as well).
 
+Then multi-device, at world size 1 (the card's machine has one card, so
+no phase shows scaling): an NCCL process group of one rank in this
+process with the (dp, fsdp, tp) mesh and the edge mesh on the card
+(`dist_world1`, first after the build); the wild default.yaml run's state
+after its last frame, stepped once more through the edge-sharded
+`sharded_frame_step` (`parallel/infer_shard.py`: the correlation kernel
+on the rank's rows, SoftAgg and BA reduced over the group) against the
+eager `frame_step` on the same state (`edge_sharded_card`, each output
+within its TOL_SHARDED_FRAME limit, and three planted faults that must
+each break one); the FSDP train step at train_full's shape
+and batch, with injected draws, against the one-device step
+(`train_sharded_card`: the loss, the first gradient, the parameters after
+SHARDED_TRAIN_STEPS steps); and NeRF `train` with a one-rank "dp" mesh
+against `train` without one (`nerf_dp_card`, the losses within
+TOL_NERF_DP_LOSS); last, the dry run's four checks on two gloo ranks
+sharing the card (`dryrun_gloo_card`, each against its one-device
+counterpart within 2e-2, the JAX dry run's).
+
 The kernel counts include the launches of every graph replay. Each VO run
 also reports the share of its correlation edge-levels that took the
 per-pixel path. Each phase prints one JSON line; the kernel summary and
@@ -195,6 +213,9 @@ from wild_video_3d_reconstruction_torch.ops.corr import (
     LEVELS, box_plan, corr_lookup, patch_corr_pyramid)
 from wild_video_3d_reconstruction_torch.ops.segment import (
     run_first_rows, run_segment_sum_sorted, run_segment_sum_sorted_plain)
+from wild_video_3d_reconstruction_torch.parallel import dryrun
+from wild_video_3d_reconstruction_torch.parallel import infer_shard
+from wild_video_3d_reconstruction_torch.parallel import mesh as pmesh
 from wild_video_3d_reconstruction_torch.parallel import train_step as tts
 from wild_video_3d_reconstruction_torch.slam import DPVO, steps
 from wild_video_3d_reconstruction_torch.slam import global_ba as tgba
@@ -229,12 +250,17 @@ def fail(msg):
     sys.exit(1)
 
 
-# the background renders (`start_renders`): worker processes to stop on
-# every way out
+# the background renders (`start_renders`) and the ranks of
+# `dryrun_gloo_card`: worker processes to stop on every way out
 RENDER_POOL = []
+RANKS = []
 
 
 def stop_renders():
+    for ranks in RANKS:
+        for proc in ranks.procs:
+            if proc.poll() is None:
+                proc.kill()
     for pool in RENDER_POOL:
         # a pool that has shut down holds None in place of its processes
         for proc in list((getattr(pool, "_processes", None) or {}).values()):
@@ -1122,13 +1148,14 @@ def phase_synth_ate_tiny():
     return card["launches"]
 
 
-def phase_wild(wild):
+def phase_wild(wild, emesh):
     """This slice's path at full width: configs/default.yaml at 384x512
     with the trained weights, the world's depth as the prior and the
     occluder's mask on every frame, replayed and in sync_mode (poses
-    bitwise equal: BA's card sums are fp64); then configs/fast.yaml with
-    keypoint patches on the same images, replayed. Returns (launches, the
-    replayed default.yaml run's record)."""
+    bitwise equal: BA's card sums are fp64), the sync run's state then
+    stepped edge-sharded (`edge_sharded_card`); then configs/fast.yaml
+    with keypoint patches on the same images, replayed. Returns
+    (launches, the replayed default.yaml run's record)."""
     expect = ("corr_pyramid", "runsum")
     runs = [phase_slam(name, "configs/default.yaml", WILD_FRAMES, expect,
                        sync_mode=sync, wild=wild, network=WEIGHTS,
@@ -1142,10 +1169,11 @@ def phase_wild(wild):
          same_keyframe_drops=kfg == kfs, keyframe_drops=len(kfg))
     if not same or kfg != kfs:
         fail("slam_default_wild: the replayed poses differ from sync_mode")
+    sharded = phase_edge_sharded_card(runs[1][3], wild, emesh)
     runs.append(phase_slam("slam_fast_keypoints", "configs/fast.yaml",
                            WILD_FRAMES, expect, wild=wild, network=WEIGHTS,
                            PATCH_SELECTOR="keypoints"))
-    launches = dict.fromkeys(_native.LAUNCHES, 0)
+    launches = dict(sharded)
     for run in runs:
         for k, v in run[0].items():
             launches[k] += v
@@ -2170,6 +2198,321 @@ def phase_train_full(batch):
     if not launches["corr_pyramid"] or not launches["corr_pyramid_backward"]:
         fail(f"train_full: correlation kernels not launched: {launches}")
     return launches
+
+
+# multi-device at world size 1: the sharded train step against the
+# one-device step on the same batch and draws (the loss; the first
+# gradient as train_step_card_vs_cpu holds it; the displacements after the
+# steps as tests/test_torch_parallel.py holds the CPU ranks: 5e-2 of each
+# tensor's norm, 5e-3 of the global one, where Adam amplifies rounding of
+# nearly cancelling gradients); the sharded frame step against the eager
+# one, each output's largest difference over its largest value, each
+# limit between the sound reading and the planted faults' (readings on
+# the H100, PERF.md section 6): the poses, patches and the log's flow
+# metric move only through BA's fp64 sums, 3e-5 / 1e-5 / 1e-5 (sound
+# 2.3e-6 / 2.9e-6 / 3.8e-7; the faults of BA at least 3.9e-4 / 3.4e-5 /
+# 9.4e-5); the target is the bf16 network's flow delta added to fp32
+# coordinates, 2e-4 (5.8e-5; the shifted neighbour rows 8.5e-3); the
+# hidden state and the weights are bf16, whose sharded SoftAgg (fp64
+# scatter) and eager one (the run-sum kernel) round one or two bf16 units
+# apart, the JAX dry run's 2e-2 (6.9e-3, 4.2e-3; the shifted rows 0.77,
+# 0.84); NeRF data parallel against one device on the same draws
+SHARDED_TRAIN_STEPS = 2
+TOL_SHARDED_LOSS_REL = 1e-5
+TOL_SHARDED_MOVE = 5e-2
+TOL_SHARDED_MOVE_GLOBAL = 5e-3
+TOL_SHARDED_FRAME = dict(poses=3e-5, patches=1e-5, target=2e-4, log=1e-5,
+                         net=2e-2, weight=2e-2)
+NERF_DP_STEPS = 3
+TOL_NERF_DP_LOSS = 1e-6
+
+
+def phase_dist_world1(workdir):
+    """An NCCL process group of world size 1 in this process (a `file://`
+    store in workdir), `make_mesh(1)` and `make_edge_mesh(1)` on the
+    card, and one all-reduce through them. Returns (mesh, edge mesh,
+    "dp" mesh)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t0 = time.perf_counter()
+    rank, world = pmesh.init_distributed(
+        "cuda", 0, 1, "file://" + os.path.join(workdir, "store"))
+    mesh = pmesh.make_mesh(1, "cuda")
+    emesh = infer_shard.make_edge_mesh(1, "cuda")
+    dp = init_device_mesh("cuda", (1,), mesh_dim_names=("dp",))
+    x = torch.arange(4.0, device=DEV)
+    dist.all_reduce(x, group=emesh.get_group())
+    ok = bool(torch.equal(x.cpu(), torch.arange(4.0)))
+    emit("dist_world1", backend=dist.get_backend(), rank=rank, world=world,
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         hsdp=list(pmesh.hsdp_mesh(mesh).shape),
+         nccl=".".join(map(str, torch.cuda.nccl.version())),
+         all_reduce_ok=ok, seconds=time.perf_counter() - t0)
+    if not (ok and world == 1 and dist.get_backend() == "nccl"):
+        fail("dist_world1: the NCCL group of one rank did not form")
+    return mesh, emesh, dp
+
+
+class _PlantedFault(infer_shard.EdgeShard):
+    """The edge shard's hooks with one fault planted, for the gate of
+    `edge_sharded_card` to catch at world size 1: "ba_pose_block_doubled"
+    doubles BA's first reduced pose block B (the third all-reduce of the
+    update, after the two SoftAggs' sums); "neighbour_rows_shifted" reads
+    each neighbour message one row further on."""
+
+    def __init__(self, mesh, kind):
+        super().__init__(mesh)
+        self.kind, self.calls = kind, 0
+
+    def all_reduce(self, x):
+        x = super().all_reduce(x)
+        self.calls += 1
+        if self.kind == "ba_pose_block_doubled" and self.calls == 3:
+            x = 2 * x
+        return x
+
+    def gather_rows(self, x, ix):
+        if self.kind == "neighbour_rows_shifted":
+            ix = (ix + 1).clamp(max=self.world * x.shape[0] - 1)
+        return super().gather_rows(x, ix)
+
+
+@contextlib.contextmanager
+def _one_gauss_newton_iteration():
+    """`steps.update_op`'s BA with one Gauss-Newton iteration, not two."""
+    saved = steps.BAConfig
+    steps.BAConfig = lambda **kw: saved(**dict(kw, iterations=1))
+    try:
+        yield
+    finally:
+        steps.BAConfig = saved
+
+
+def phase_edge_sharded_card(slam, wild, emesh):
+    """The wild default.yaml run's state (sync mode, after its last frame,
+    trained weights) stepped once more with that frame (image, depth
+    prior, mask) through `sharded_frame_step` on the one-rank edge mesh
+    and through the eager `frame_step`, each from a copy of the state:
+    poses, patches, net, target, weight and the log row each within its
+    TOL_SHARDED_FRAME limit of their largest value, the counters and the
+    edge table equal; ms a step (each after a warm-up step on another
+    copy); the launches of the sharded step (the correlation kernel
+    required). Then the sharded step three times more, each with a
+    planted fault (`_PlantedFault`, and BA cut to one Gauss-Newton
+    iteration): each must put an output past its limit."""
+    cfg, net, state = slam.cfg, slam.net, slam.state
+    images, _, intr, depths, masks = wild
+    t = WILD_FRAMES - 1
+    c, given, d, j = steps.draw_inputs(cfg, state, HT, WD, has_mask=True)
+
+    def up(v, dtype=None):
+        return None if v is None else \
+            torch.as_tensor(np.asarray(v)).to(DEV, dtype)
+
+    inputs = steps.FrameInputs(
+        up(images[t]), up(intr, torch.float32),
+        torch.tensor(1.0, device=DEV), up(c), up(given), up(d), up(j),
+        up(depths[t], torch.float32), up(masks[t], torch.bool))
+    n_rows = steps.choose_tier(
+        steps.edge_tiers(cfg, state.ii.shape[0], DEV),
+        int(state.n_edges) + steps.appended_rows(cfg))
+
+    def run(shard=None):
+        st = dryrun.clone_state(state)
+        with torch.no_grad():
+            return steps.frame_step(cfg, net, st, inputs, n_rows,
+                                    shard=shard)
+
+    runs, ms = {}, {}
+    for name in ("eager", "sharded"):
+        def step():
+            if name == "eager":
+                return run()
+            return infer_shard.sharded_frame_step(
+                emesh, cfg, net, dryrun.clone_state(state), inputs, n_rows)
+        step()
+        torch.cuda.synchronize()
+        if name == "sharded":
+            _native.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[name] = step()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        if name == "sharded":
+            launches = dict(_native.LAUNCHES)
+    ref = runs["eager"]
+
+    def rel_err(a):
+        out = {}
+        for k in TOL_SHARDED_FRAME:
+            x, y = getattr(a, k).float(), getattr(ref, k).float()
+            out[k] = float((x - y).abs().max()
+                           / y.abs().max().clamp(min=1e-6))
+        return out
+
+    rel = rel_err(runs["sharded"])
+    same = {k: bool(torch.equal(getattr(runs["sharded"], k),
+                                getattr(ref, k)))
+            for k in ("counts", "ii", "jj", "kk", "valid")}
+    faults = {kind: rel_err(run(_PlantedFault(emesh, kind)))
+              for kind in ("ba_pose_block_doubled",
+                           "neighbour_rows_shifted")}
+    with _one_gauss_newton_iteration():
+        faults["ba_one_iteration"] = rel_err(run(infer_shard.EdgeShard(
+            emesh)))
+    caught = {kind: [k for k, v in r.items() if v > TOL_SHARDED_FRAME[k]]
+              for kind, r in faults.items()}
+    emit("edge_sharded_card", config="configs/default.yaml", HxW=[HT, WD],
+         weights=WEIGHTS, frame=t, n_edges_before=int(state.n_edges),
+         n_rows=n_rows, world=1, rel_err=rel, tol=TOL_SHARDED_FRAME,
+         equal=same, planted_faults=faults, caught_by=caught,
+         ms_sharded=ms["sharded"], ms_eager=ms["eager"],
+         launches={k: v for k, v in launches.items() if v})
+    if any(v > TOL_SHARDED_FRAME[k] for k, v in rel.items()) or \
+            not all(same.values()):
+        fail(f"edge_sharded_card: sharded against eager {rel}, {same}")
+    if not all(caught.values()):
+        fail(f"edge_sharded_card: a planted fault passed the limits: "
+             f"{faults}")
+    if not launches["corr_pyramid"]:
+        fail(f"edge_sharded_card: correlation kernel not launched: "
+             f"{launches}")
+    return launches
+
+
+def phase_train_sharded_card(batch, mesh):
+    """The FSDP train step over the one-rank (dp, fsdp, tp) mesh at
+    train_full's shape (TrainConfig(8, 32, 8), batch 4 of the rendered
+    384x512 clips, injected draws), SHARDED_TRAIN_STEPS steps, against
+    the one-device step on the same batch and draws: ms a step, peak
+    memory, the backward kernel's launches in the sharded run."""
+    coords, d0 = _train_draws(TRAIN_FULL, TRAIN_FULL_BATCH, HT, WD, seed=3)
+    runs = {}
+    for name, m in (("sharded", mesh), ("one_device", None)):
+        net = vonet.init_vonet(0).to(DEV)
+        opt = tts.make_optimizer(net.parameters(), lr=8e-5)
+        step = tts.build_train_step(net, TRAIN_FULL, opt, DEV, mesh=m)
+        names = [n for n, _ in net.named_parameters()]
+        grads, clip = {}, opt.clip_grads
+
+        def recorded():
+            if not grads:
+                for n, p in zip(names, opt.params):
+                    g = p.grad.full_tensor() if hasattr(p.grad,
+                                                        "full_tensor") \
+                        else p.grad
+                    grads[n] = g.detach().clone()
+            return clip()
+        opt.clip_grads = recorded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _native.reset_launch_counts()
+        rows = []
+        for _ in range(SHARDED_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            mtr = step(batch, torch.Generator(), patch_coords=coords,
+                       init_depths=d0)
+            torch.cuda.synchronize()
+            rows.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                             **{k: float(v) for k, v in mtr.items()}))
+        runs[name] = dict(rows=rows, grads=grads,
+                          launches=dict(_native.LAUNCHES),
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          params={n: (p.full_tensor() if hasattr(
+                              p, "full_tensor") else p).detach().clone()
+                              for n, p in net.named_parameters()})
+    a, b = runs["sharded"], runs["one_device"]
+    loss_rel = abs(a["rows"][0]["loss"] - b["rows"][0]["loss"]) / \
+        abs(b["rows"][0]["loss"])
+    total = torch.sqrt(sum((g * g).sum() for g in b["grads"].values()))
+    grad_rel = max(float(((a["grads"][n] - g).norm() - TOL_TRAIN_GRAD_GLOBAL
+                          * total) / g.norm().clamp(min=1e-30))
+                   for n, g in b["grads"].items())
+    p0 = {n: p.detach().to(DEV)
+          for n, p in vonet.init_vonet(0).named_parameters()}
+    worst, sq_err, sq_norm = 0.0, 0.0, 0.0
+    for n, p in a["params"].items():
+        if b["grads"][n].norm() < TOL_TRAIN_GRAD_GLOBAL * total:
+            continue
+        moved, moved_one = p - p0[n], b["params"][n] - p0[n]
+        err = float((moved - moved_one).norm())
+        worst = max(worst, err / float(moved_one.norm().clamp(min=1e-30)))
+        sq_err += err * err
+        sq_norm += float((moved_one * moved_one).sum())
+    move_global = (sq_err / max(sq_norm, 1e-30)) ** 0.5
+    emit("train_sharded_card", frames=TRAIN_FULL.frames,
+         patches=TRAIN_FULL.patches, unrolled=TRAIN_FULL.steps,
+         batch=TRAIN_FULL_BATCH, HxW=[HT, WD], world=1,
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         steps={k: v["rows"] for k, v in runs.items()},
+         ms_per_step_sharded=statistics.mean(
+             r["ms"] for r in a["rows"][1:]),
+         ms_per_step_one_device=statistics.mean(
+             r["ms"] for r in b["rows"][1:]),
+         peak_allocated_gb={k: v["peak_gb"] for k, v in runs.items()},
+         loss_rel_err=loss_rel, tol_loss=TOL_SHARDED_LOSS_REL,
+         grad_rel_err_past_global=grad_rel, tol_grad=TOL_TRAIN_GRAD_REL,
+         move_rel_err_worst=worst, move_rel_err_global=move_global,
+         tol_move=[TOL_SHARDED_MOVE, TOL_SHARDED_MOVE_GLOBAL],
+         backward_kernel_launches=a["launches"]["corr_pyramid_backward"],
+         launches={k: v for k, v in a["launches"].items() if v})
+    if not (loss_rel <= TOL_SHARDED_LOSS_REL
+            and grad_rel <= TOL_TRAIN_GRAD_REL and worst <= TOL_SHARDED_MOVE
+            and move_global <= TOL_SHARDED_MOVE_GLOBAL):
+        fail(f"train_sharded_card: loss {loss_rel}, gradient {grad_rel}, "
+             f"displacements {worst} / {move_global}")
+    if not a["launches"]["corr_pyramid"] or \
+            not a["launches"]["corr_pyramid_backward"]:
+        fail(f"train_sharded_card: kernels not launched: {a['launches']}")
+    return a["launches"]
+
+
+def phase_nerf_dp_card(scene, dp):
+    """NERF_DP_STEPS steps of NeRF `train` (batch 4096, its defaults) on
+    the 384x512 orbit with a one-rank "dp" mesh and without one, from the
+    same seed (the mesh path draws the global batch's rays and jitter as
+    one device does): the losses within TOL_NERF_DP_LOSS, ms a step."""
+    out = {}
+    for name, m in (("dp", dp), ("one_device", None)):
+        losses, marks = [], []
+
+        def hook(s, loss):
+            losses.append(loss)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        tnt.train(*scene, steps=NERF_DP_STEPS, eval_every=NERF_DP_STEPS,
+                  log=lambda *a: None, device=DEV, step_hook=hook, mesh=m)
+        out[name] = dict(losses=[float(v) for v in losses],
+                         ms_per_step=(marks[-1] - marks[0]) * 1e3
+                         / (len(marks) - 1))
+    diff = max(abs(x - y) for x, y in zip(out["dp"]["losses"],
+                                          out["one_device"]["losses"]))
+    emit("nerf_dp_card", HxW=[HT, WD], frames=NERF_FRAMES, batch=4096,
+         steps=NERF_DP_STEPS, world=1, **out, max_abs_loss_diff=diff,
+         tol=TOL_NERF_DP_LOSS)
+    if not diff <= TOL_NERF_DP_LOSS:
+        fail(f"nerf_dp_card: losses {out}")
+
+
+def phase_dryrun_gloo_card():
+    """`parallel/dryrun.py`'s four checks (the FSDP train step, the
+    edge-sharded correlation, `sharded_update_op`, `sharded_frame_step`,
+    each against its one-device counterpart) on two ranks that share the
+    one card through gloo (its collectives on CUDA tensors; NCCL takes
+    one rank per card): two processes, the kernels run in each."""
+    t0 = time.perf_counter()
+    ranks = dryrun.launch(2, f"{dryrun.MODULE}:run_checks", "cuda",
+                          device="cuda", backend="gloo", timeout=300)
+    RANKS.append(ranks)
+    try:
+        readings = ranks.wait()
+    except RuntimeError as e:
+        fail(f"dryrun_gloo_card: {e}")
+    emit("dryrun_gloo_card", world=2, backend="gloo", device="cuda",
+         readings=readings[0],
+         same_on_both_ranks=readings[0] == readings[1],
+         tol=dryrun.TOL_SHARDED_REL, seconds=time.perf_counter() - t0)
 
 
 def _timed(fn, *a, **kw):
@@ -3239,6 +3582,8 @@ def main():
     phase_env()
     renders = start_renders()
     phase_build()
+    dist_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    mesh, emesh, dp = phase_dist_world1(dist_dir)
     gen = torch.Generator().manual_seed(0)
     rows = [kernel_corr(gen), kernel_runsum(gen),
             kernel_region_fused(gen, "x32"),
@@ -3272,7 +3617,7 @@ def main():
     emit("render", frames=WILD_FRAMES, HxW=[HT, WD], fx=320.0,
          seconds=seconds, waited_s=time.perf_counter() - t0,
          masked_share=float(1.0 - wild[4].mean()))
-    launches, wild_record = phase_wild(wild)
+    launches, wild_record = phase_wild(wild, emesh)
     for phase in (lambda: launches, phase_synth_ate_tiny,
                   lambda: phase_bootstrap_wild(wild)):
         for k, v in phase().items():
@@ -3301,6 +3646,8 @@ def main():
          waited_s=time.perf_counter() - t0)
     for k, v in phase_train_full(train_batch).items():
         total[k] += v
+    for k, v in phase_train_sharded_card(train_batch, mesh).items():
+        total[k] += v
     del train_batch
     t0 = time.perf_counter()
     multilap, seconds = renders["multilap"].result()
@@ -3320,6 +3667,7 @@ def main():
     del multilap
     phase_png_roundtrip(np.ascontiguousarray(recon_scene[0][0][..., ::-1]))
     phase_nerf_card_vs_cpu()
+    phase_nerf_dp_card(nerf_scene, dp)
     phase_nerf_native(nerf_scene)
     del nerf_scene
     for refine in (True, False):
@@ -3363,8 +3711,11 @@ def main():
     phase_loop_recall()
     phase_matcher_recall(net)
     phase_demo_cv2_inputs()
+    phase_dryrun_gloo_card()
     for row in rows:
         row["launches"] = total[row["name"]]
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(dist_dir, ignore_errors=True)
     signal.alarm(0)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": rows}), flush=True)

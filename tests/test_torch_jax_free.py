@@ -20,7 +20,10 @@ PNGs and a point cloud, and `prepare` turns the COLMAP model above into a
 transforms.json that `load_transforms` reads; the evaluation drivers run
 at tiny sizes (`harness.run_scene`, `synth_suite.run_suite`,
 `calib_sensitivity.run_oracle` and `run_sweep`, `loop_recall.run`,
-`matcher_recall.run_pair`, the dataset registry read from a YAML file).
+`matcher_recall.run_pair`, the dataset registry read from a YAML file);
+the multi-device dry run's four checks (`parallel/dryrun.py`: the FSDP
+train step, the edge-sharded correlation, `sharded_update_op` and
+`sharded_frame_step`) on a one-rank gloo group.
 The card's machine has OpenCV (4.13), but the port imports it only where
 it is used: with cv2 blocked, the loop closure's JPEG keyframe cache and
 the harness's undistorting streams raise ImportError naming themselves.
@@ -31,7 +34,7 @@ A static scan of the port's sources backs this up for lazy imports
 inside functions: cv2 only inside functions of `io/stream.py` (its
 `require_cv2`, which the JPEG-95 cache and the degenerate focal
 fallback call too), `nerf/train_native.py` and `nerf/render.py`
-(non-PNG images, mp4).
+(non-PNG images, mp4) and `train/data.py` (the TartanAir reader).
 """
 
 import ast
@@ -44,7 +47,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "wild_video_3d_reconstruction_torch"
 BLOCKED = ("jax", "jaxlib", "optax", "yaml", "cv2",
            "wild_video_3d_reconstruction_tpu")
-CV2_INSIDE = ("io/stream.py", "nerf/train_native.py", "nerf/render.py")
+CV2_INSIDE = ("io/stream.py", "nerf/train_native.py", "nerf/render.py",
+              "train/data.py")
 
 SCRIPT = """
 import sys
@@ -226,6 +230,14 @@ assert np.isfinite(float(m["loss"]))
 ev = learn_synth.evaluate(net, [make_world_batch(1, 1, tc, ht=32, wd=32)],
                           tc, "cpu")
 assert np.isfinite(ev["epe"])
+# multi-device: the dry run's four checks on a one-rank gloo group
+from wild_video_3d_reconstruction_torch.parallel import dryrun
+from wild_video_3d_reconstruction_torch.parallel import mesh as pmesh
+with tempfile.TemporaryDirectory() as tmp:
+    assert pmesh.init_distributed("cpu", 0, 1, "file://" + tmp + "/s") \
+        == (0, 1)
+    assert dryrun.run_checks("cpu")["corr_rel"] == 0.0
+    torch.distributed.destroy_process_group()
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in {blocked!r} and sys.modules[k])
 print("LOADED", loaded, len(names))

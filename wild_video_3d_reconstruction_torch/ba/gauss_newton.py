@@ -126,7 +126,14 @@ def _scatter_rows(values, index, ok, n):
 
 def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
                   valid, t0, t1, m_base, cfg: BAConfig, patches_est=None,
-                  patch_table=None):
+                  patch_table=None, ar=None):
+    """ar: an all-reduce applied in place to every accumulator summed over
+    the edges (B, Em, C / u / touched, v), or None. The edge-sharded path
+    (`parallel.infer_shard`) passes a SUM over its edge group, so each
+    rank adds its partial system and every rank solves the same one."""
+    if ar is None:
+        def ar(x):
+            return x
     W_, M_ = cfg.window, cfg.patch_slots
     dev = poses.device
 
@@ -153,8 +160,8 @@ def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
     Pjj = _scatter_rows(Bjj, lj * W_ + lj, okj, W_ * W_)
     # Bji[e] = Bij[e]^T at the transposed pair (lj, li)
     Pji = Pij.reshape(W_, W_, 6, 6).permute(1, 0, 3, 2).reshape(W_ * W_, 36)
-    B = (Pii + Pij + Pji + Pjj).reshape(W_, W_, 6, 6).permute(0, 2, 1, 3) \
-        .reshape(6 * W_, 6 * W_)
+    B = ar(Pii + Pij + Pji + Pjj).reshape(W_, W_, 6, 6) \
+        .permute(0, 2, 1, 3).reshape(6 * W_, 6 * W_)
 
     Eik = torch.einsum("er,eri->ei", wJz, Ji)
     Ejk = torch.einsum("er,eri->ei", wJz, Jj)
@@ -170,13 +177,13 @@ def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
         li_m = torch.cat([torch.where(oki, li, -1), minus1])
         lj_m = torch.cat([torch.where(okj, lj, -1), minus1])
         g = vals[table]                                       # [M, cap, 15]
-        accu = g[..., :3].sum(1)
+        accu = ar(g[..., :3].sum(1))
         C, u, touched_cnt = accu[:, 0], accu[:, 1], accu[:, 2]
         ohi_t = (li_m[table][..., None] == iw).to(g.dtype)
         ohj_t = (lj_m[table][..., None] == iw).to(g.dtype)
         Em_m = (torch.einsum("mcw,mcd->mwd", ohi_t, g[..., 3:9])
                 + torch.einsum("mcw,mcd->mwd", ohj_t, g[..., 9:15]))
-        Em = Em_m.permute(1, 2, 0).reshape(6 * W_, M_)
+        Em = ar(Em_m.permute(1, 2, 0).reshape(6 * W_, M_))
     else:
         oh_i = ((li[:, None] == iw) & oki[:, None]).to(w.dtype)
         oh_j = ((lj[:, None] == iw) & okj[:, None]).to(w.dtype)
@@ -184,13 +191,13 @@ def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
                + oh_j[:, :, None] * Ejk[:, None, :]).reshape(-1, W_ * 6)
         oh_q = ((q[:, None] == torch.arange(M_, device=dev)) &
                 okq[:, None]).to(w.dtype)
-        Em = tmp.T @ oh_q
-        CU = oh_q.T @ cu
+        Em = ar(tmp.T @ oh_q)
+        CU = ar(oh_q.T @ cu)
         C, u, touched_cnt = CU[:, 0], CU[:, 1], CU[:, 2]
     vi = torch.einsum("er,eri->ei", w * r, Ji)
     vj = torch.einsum("er,eri->ei", w * r, Jj)
-    v = (_scatter_rows(vi, li, oki, W_) + _scatter_rows(vj, lj, okj, W_)
-         ).reshape(6 * W_)
+    v = ar((_scatter_rows(vi, li, oki, W_) + _scatter_rows(vj, lj, okj, W_)
+            ).reshape(6 * W_))
 
     Nk = patches.shape[0]
     if patches_est is not None:
@@ -253,13 +260,14 @@ def _gn_iteration(poses, patches, intr, target, weight, lam, ii, jj, kk,
 
 def _bundle_adjust_impl(poses, patches, intrinsics, target, weight, lam,
                         ii, jj, kk, valid, t0, t1, m_base, cfg: BAConfig,
-                        patches_est=None, patch_table=None):
+                        patches_est=None, patch_table=None, ar=None):
     """cfg.iterations Gauss-Newton steps.
 
     poses [N, 7] (w2c), patches [Nk, 3, P, P], intrinsics [4] shared,
     target / weight [E, 2], ii / jj / kk [E], valid [E]; t0, t1 (the free
     pose window) and m_base (first live patch id) are host integers or 0-d
-    tensors on the device.
+    tensors on the device. ar: the all-reduce of `_gn_iteration` (None:
+    one device; every existing caller is unchanged).
     Returns (poses, patches).
     """
     dt = torch.float64 if poses.dtype == torch.float64 else torch.float32
@@ -276,5 +284,5 @@ def _bundle_adjust_impl(poses, patches, intrinsics, target, weight, lam,
         poses, patches = _gn_iteration(
             poses, patches, intrinsics, target, weight, lam, ii, jj, kk,
             valid, t0, t1, m_base, cfg, patches_est=patches_est,
-            patch_table=patch_table)
+            patch_table=patch_table, ar=ar)
     return poses, patches

@@ -56,7 +56,8 @@ class Oracle:
         self.calls = torch.zeros((), dtype=torch.long, device=dev)
 
     def __call__(self, cfg, net, state, net_e, ii, jj, kk, valid, n,
-                 nbr=None, agg_order=None):
+                 nbr=None, agg_order=None, shard=None):
+        # per-row targets: nothing to reduce across a shard's rows
         from ..ops import projective as pops
 
         coords = pops.transform(state.poses, state.patches,

@@ -78,6 +78,14 @@ class SoftAgg(nn.Module):
         return self.h(y)
 
 
+def _take_rows(x, ix):
+    return x[ix]
+
+
+def _soft_agg(agg, x, seg_ids, num_segments, valid, **kw):
+    return agg(x, seg_ids, num_segments, valid, **kw)
+
+
 class UpdateOperator(nn.Module):
     def __init__(self, patch_size=3, generator=None):
         super().__init__()
@@ -98,19 +106,25 @@ class UpdateOperator(nn.Module):
 
     def forward(self, net, inp, corr, kk_seg, ij_seg, nbr_ix, nbr_jx, valid,
                 num_kk_segments, num_ij_segments, kk_order=None,
-                kk_table=None):
+                kk_table=None, gather=None, agg=None):
+        """gather(net, ix) reads the neighbours' rows and agg(soft_agg, x,
+        seg_ids, num_segments, valid, **kw) runs a SoftAgg: by default
+        over these rows alone, with collectives where they are one
+        rank's share of the edges (`parallel.infer_shard.EdgeShard`)."""
+        gather = gather or _take_rows
+        agg = agg or _soft_agg
         net = net + inp + self.corr(corr)
         net = self.norm(net)
 
         mask_ix = ((nbr_ix >= 0) & valid).to(net.dtype)[:, None]
         mask_jx = ((nbr_jx >= 0) & valid).to(net.dtype)[:, None]
         # sequential message passing: the c2 gather reads the c1 update
-        net = net + self.c1(mask_ix * net[nbr_ix.clamp(min=0)])
-        net = net + self.c2(mask_jx * net[nbr_jx.clamp(min=0)])
+        net = net + self.c1(mask_ix * gather(net, nbr_ix.clamp(min=0)))
+        net = net + self.c2(mask_jx * gather(net, nbr_jx.clamp(min=0)))
 
-        net = net + self.agg_kk(net, kk_seg, num_kk_segments, valid,
-                                order=kk_order, table=kk_table)
-        net = net + self.agg_ij(net, ij_seg, num_ij_segments, valid)
+        net = net + agg(self.agg_kk, net, kk_seg, num_kk_segments, valid,
+                        order=kk_order, table=kk_table)
+        net = net + agg(self.agg_ij, net, ij_seg, num_ij_segments, valid)
         net = self.gru(net)
         delta = self.d(net)
         weight = torch.sigmoid(self.w(net))
@@ -119,11 +133,12 @@ class UpdateOperator(nn.Module):
 
 def update_forward(update, net, inp, corr, kk_seg, ij_seg, nbr_ix, nbr_jx,
                    valid, num_kk_segments, num_ij_segments, kk_table=None,
-                   kk_order=None):
+                   kk_order=None, gather=None, agg=None):
     """One update step over all edges -> (net', delta [E, 2], weight
     [E, 2]); the JAX package's `update_forward` with the module in place
     of its parameter tree. kk_table: the per-patch groups' [S, cap] edge
-    table (`_group_by_patch`), taken when no kk_order is given."""
+    table (`_group_by_patch`), taken when no kk_order is given; gather,
+    agg: `UpdateOperator.forward`'s hooks."""
     return update(net, inp, corr, kk_seg, ij_seg, nbr_ix, nbr_jx, valid,
                   num_kk_segments, num_ij_segments, kk_order=kk_order,
-                  kk_table=kk_table)
+                  kk_table=kk_table, gather=gather, agg=agg)

@@ -15,9 +15,15 @@ optional contraction, test-time eval-pose alignment). Every
 `--eval_every` steps it logs the loss and the held-out PSNR; the last
 line is one JSON summary. The draws of each step come from a
 `torch.Generator` seeded with `seed`, or are passed in (`draws=`,
-`align_draws=`), as the parity tests pass the JAX package's. The JAX
-package's ray-batch sharding over a device mesh belongs to multi-device
-training and is not here.
+`align_draws=`), as the parity tests pass the JAX package's.
+
+Data parallel (`mesh=`, the JAX package's 1-axis "dp" mesh): a 1-D
+`DeviceMesh` or a process group, every rank calling the trainer. The
+field starts from rank 0's and stays replicated; every rank draws the
+step's global ray batch (the same generator state, or the same `draws`)
+and renders its contiguous share; the gradients are averaged over the
+ranks in one flat all-reduce, so a step equals the one-device step on the
+whole batch. `--mesh N` runs so under `torchrun --nproc_per_node N`.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..io import png
 from . import ngp
@@ -118,6 +125,49 @@ def psnr(a, b):
     return -10.0 * np.log10(max(mse, 1e-10))
 
 
+class _DataParallel:
+    """The ray-batch sharding of `mesh` (None: one device)."""
+
+    def __init__(self, mesh, params):
+        if mesh is None:
+            self.group, self.rank, self.world = None, 0, 1
+            return
+        self.group = mesh.get_group() if hasattr(mesh, "get_group") \
+            else mesh
+        self.rank = dist.get_rank(self.group)
+        self.world = dist.get_world_size(self.group)
+        src = dist.get_global_rank(self.group, 0)
+        with torch.no_grad():
+            for p in params:
+                dist.broadcast(p.data, src, group=self.group)
+
+    def share(self, x, batch):
+        """The rank's rows of a global batch's x (None stays None)."""
+        if x is None or self.group is None:
+            return x
+        if batch % self.world:
+            raise ValueError(f"mesh: batch {batch} does not divide by "
+                             f"{self.world} ranks")
+        n = batch // self.world
+        return x[self.rank * n:(self.rank + 1) * n]
+
+    def average(self, params, value):
+        """Average the gradients of params and value (a scalar) over the
+        ranks, in one all-reduce; returns the averaged value."""
+        if self.group is None:
+            return value
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        flat = torch.cat([value.reshape(1)] + [g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        flat = flat / self.world
+        at = 1
+        for p, g in zip(params, grads):
+            p.grad = flat[at:at + g.numel()].view_as(g)
+            at += g.numel()
+        return flat[0]
+
+
 def _holdout(n_imgs, holdout):
     eval_ids = list(range(holdout - 1, n_imgs, holdout)) or [n_imgs - 1]
     return eval_ids, [i for i in range(n_imgs) if i not in eval_ids]
@@ -126,7 +176,7 @@ def _holdout(n_imgs, holdout):
 def train(images, c2ws, intrs, convention, steps=2000, batch=4096,
           n_samples=64, levels=8, table_size=2 ** 14, max_res=256,
           lr=1e-2, eval_every=500, holdout=8, seed=0, log=print,
-          device="cuda", field=None, draws=None, step_hook=None):
+          device="cuda", field=None, draws=None, step_hook=None, mesh=None):
     """Train the plain field; returns (NGPField, report dict).
 
     Each step samples `batch` training rays and a stratified jitter per
@@ -134,7 +184,9 @@ def train(images, c2ws, intrs, convention, steps=2000, batch=4096,
     `draws` (an iterable of (ray index [batch], jitter [batch,
     n_samples]) per step). `field`: the initial field (default: an
     `NGPField` drawn from a CPU generator seeded `seed`). `step_hook(s,
-    loss)` is called after every step with its loss (a device scalar)."""
+    loss)` is called after every step with its loss (a device scalar).
+    mesh: data parallel over its ranks (the module docstring); the loss
+    is then the whole batch's."""
     all_rays, center, scale, near, far = build_rays(images, c2ws, intrs,
                                                     convention)
     n_imgs = all_rays.shape[0]
@@ -146,6 +198,7 @@ def train(images, c2ws, intrs, convention, steps=2000, batch=4096,
                              generator=torch.Generator().manual_seed(seed))
     field = field.to(device)
     opt = ngp.make_optimizer(field, lr)
+    dp = _DataParallel(mesh, opt.params)
     gen = torch.Generator(device=device).manual_seed(seed)
     draws = iter(draws) if draws is not None else None
 
@@ -153,17 +206,20 @@ def train(images, c2ws, intrs, convention, steps=2000, batch=4096,
         if draws is None:
             idx = torch.randint(0, rays.shape[0], (batch,), generator=gen,
                                 device=device)
-            jitter = None
+            # the global batch's jitter, as one device draws it
+            jitter = None if dp.group is None else torch.rand(
+                (batch, n_samples), generator=gen, device=device)
         else:
             idx, jitter = next(draws)
-            idx = ngp.as_device(idx, device, torch.long)
+        idx = ngp.as_device(dp.share(idx, batch), device, torch.long)
         b = rays[idx]
         rgb, _, _ = ngp.render_rays(field, b[:, 0:3], b[:, 3:6], gen,
                                     n_samples=n_samples, near=near, far=far,
-                                    jitter=jitter)
+                                    jitter=dp.share(jitter, batch))
         loss = torch.mean((rgb - b[:, 6:9]) ** 2)
         opt.zero_grad()
         loss.backward()
+        loss = dp.average(opt.params, loss.detach())
         opt.step()
         return loss.detach()
 
@@ -209,7 +265,7 @@ def train_refine(images, c2ws, intrs, convention, steps=2000, batch=4096,
                  contraction=False, refine_pose=True, content_depth=3.0,
                  eval_align=False, align_steps=60, eval_gauge="interp",
                  device="cuda", field=None, draws=None, align_draws=None,
-                 fine_u=None, step_hook=None):
+                 fine_u=None, step_hook=None, mesh=None):
     """The nerfacto-equivalent trainer: hierarchical sampling, per-image
     appearance embeddings, learned SE(3) pose refinement and optional
     unbounded-scene contraction; rays are made inside the step from
@@ -233,7 +289,10 @@ def train_refine(images, c2ws, intrs, convention, steps=2000, batch=4096,
     [1024] and the same two) from one seeded seed + 1, or from
     `align_draws` (all views' steps in order). `fine_u`: the renderer's
     fine uniforms (`ngp.render_image`). `step_hook(s, mse)` is called
-    after every step. Returns (RefinedField, report)."""
+    after every step. mesh: data parallel over its ranks (the module
+    docstring; the pose regulariser is every rank's whole, so the
+    averaged gradient is the one-device one). Returns (RefinedField,
+    report)."""
     n_imgs, h, w = images.shape[:3]
     eval_ids, train_ids = _holdout(n_imgs, holdout)
     train_ids = np.asarray(train_ids)
@@ -279,6 +338,7 @@ def train_refine(images, c2ws, intrs, convention, steps=2000, batch=4096,
         (mlp + [params.app], lr * 0.3, 0.9, 0.99, 1e-15),
         ([params.pose_w, params.pose_t],
          ngp.pose_schedule(pose_lr, steps, refine_pose), 0.9, 0.999, 1e-8)])
+    dp = _DataParallel(mesh, opt.params)
     gen = torch.Generator(device=device).manual_seed(seed)
     draws = iter(draws) if draws is not None else None
 
@@ -305,18 +365,25 @@ def train_refine(images, c2ws, intrs, convention, steps=2000, batch=4096,
             idx = torch.randint(0, n_train * h * w, (batch,), generator=gen,
                                 device=device)
             u_c = u_f = None
+            if dp.group is not None:
+                # the global batch's uniforms, as one device draws them
+                u_c = torch.rand((batch, n_coarse), generator=gen,
+                                 device=device)
+                u_f = torch.rand((batch, n_fine), generator=gen,
+                                 device=device)
         else:
             idx, u_c, u_f = next(draws)
-            idx = ngp.as_device(idx, device, torch.long)
+        idx = ngp.as_device(dp.share(idx, batch), device, torch.long)
         o, d, target, app = make_rays(idx)
         rgb, _, _ = ngp.render_rays_hier(
             fp, o, d, gen, n_coarse=n_coarse, n_fine=n_fine, near=near,
-            far=far, app=app, contraction=contraction, u_coarse=u_c,
-            u_fine=u_f)
+            far=far, app=app, contraction=contraction,
+            u_coarse=dp.share(u_c, batch), u_fine=dp.share(u_f, batch))
         mse = torch.mean((rgb - target) ** 2)
         reg = torch.mean(params.pose_w ** 2) + torch.mean(params.pose_t ** 2)
         opt.zero_grad()
         (mse + pose_reg * reg).backward()
+        mse = dp.average(opt.params, mse.detach())
         opt.step()
         # gauge projection: remove the common-mode pose delta each step. A
         # global shift / rotation of all training cameras is invisible to
@@ -490,6 +557,9 @@ def main(argv=None):
     ap.add_argument("--save", type=str, default=None)
     ap.add_argument("--render", type=str, default=None,
                     help="write a rendered held-out view PNG here")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="data parallel over N ranks (run under torchrun "
+                         "--nproc_per_node N)")
     ap.add_argument("--refine", action="store_true",
                     help="nerfacto-style trainer: hierarchical sampling, "
                          "appearance embeddings, pose refinement")
@@ -511,6 +581,19 @@ def main(argv=None):
         data = load_transforms(args.data)
     images, c2ws, intrs, conv = data
 
+    mesh, rank = None, 0
+    if args.mesh:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from ..parallel.mesh import init_distributed
+
+        rank, world = init_distributed(args.device)
+        if world != args.mesh:
+            raise ValueError(f"--mesh {args.mesh}: WORLD_SIZE is {world}")
+        mesh = init_device_mesh(torch.device(args.device).type, (world,),
+                                mesh_dim_names=("dp",))
+    log = print if rank == 0 else (lambda *a: None)
+
     if args.refine:
         params, rep = train_refine(
             images, c2ws, intrs, conv, steps=args.steps,
@@ -519,7 +602,7 @@ def main(argv=None):
             lr=args.lr, eval_every=args.eval_every, app_dim=args.app_dim,
             pose_lr=args.pose_lr, pose_reg=args.pose_reg,
             contraction=args.contract, eval_align=args.eval_align,
-            device=args.device)
+            device=args.device, mesh=mesh, log=log)
         field = params.field
     else:
         params, rep = train(images, c2ws, intrs, conv, steps=args.steps,
@@ -527,10 +610,13 @@ def main(argv=None):
                             levels=args.levels,
                             table_size=2 ** args.table_log2,
                             max_res=args.max_res, lr=args.lr,
-                            eval_every=args.eval_every, device=args.device)
+                            eval_every=args.eval_every, device=args.device,
+                            mesh=mesh, log=log)
         field = params
     center, scale = rep.pop("center"), rep.pop("scale")
     near, far = rep.pop("near"), rep.pop("far")
+    if rank != 0:
+        return
 
     if args.save:
         from .render import save_field

@@ -1,14 +1,30 @@
-"""One optimization step of the BA-in-the-loop training, on one device.
+"""One optimization step of the BA-in-the-loop training.
 
-Counterpart of the JAX package's `parallel/train_step.py` without its
-mesh: `clip_loss_fn` is the batch mean of the clips' losses,
-`build_train_step` returns a step that runs the forward, the backward and
-the optimizer, and `make_optimizer` is the JAX package's optax chain
-written out: global-norm clipping as `optax.clip_by_global_norm`, then
-AdamW with decoupled weight decay on every parameter, at a constant rate
-or on `optax.warmup_cosine_decay_schedule`. The data-parallel and sharded
-versions (DDP, FSDP) wrap `clip_loss_fn` and the optimizer; they come
-with the multi-device slice.
+Counterpart of the JAX package's `parallel/train_step.py`: `clip_loss_fn`
+is the batch mean of the clips' losses, `build_train_step` returns a step
+that runs the forward, the backward and the optimizer, and
+`make_optimizer` is the JAX package's optax chain written out: global-norm
+clipping as `optax.clip_by_global_norm`, then AdamW with decoupled weight
+decay on every parameter, at a constant rate or on
+`optax.warmup_cosine_decay_schedule`.
+
+With a (dp, fsdp, tp) mesh (`parallel.mesh.make_mesh`) the step is
+sharded with FSDP2 as HSDP: `fully_shard` over `mesh.hsdp_mesh(mesh)`
+replicates over dp and shards the parameters, their gradients and the
+optimizer's moments over the fsdp x tp group (ROADMAP R26), each on the
+dim `mesh.shard_dims` reads from the JAX sharding rule; every rank
+takes B / world clips of the global batch and backpropagates their share
+of the global batch's mean loss (their mean / world); FSDP's reductions
+average the ranks' gradients and the step scales them back by world, so
+an update is that of one device on the whole batch. (Averaging the ranks'
+gradients of their own means would not be: the update heads'
+`gradient_clip` clamps the gradient that reaches them, whose size depends
+on the batch the mean runs over.)
+`clip_loss_fn` and `ClippedAdamW` are the one-device ones, unchanged: the
+sharded parameters are DTensors, on which the optimizer's global norm
+comes out whole (DTensor reduces the partial sums of squares before the
+square root) and its moments, made after the sharding, are sharded like
+their parameters.
 """
 
 from __future__ import annotations
@@ -17,6 +33,8 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from ..ops import lie
 from ..train.forward import TrainConfig, to_device, vonet_training_forward
@@ -144,12 +162,20 @@ def batch_to(batch, device):
             for k, v in batch.items()}
 
 
-def build_train_step(net, tc: TrainConfig, optimizer, device="cuda"):
+def build_train_step(net, tc: TrainConfig, optimizer, device="cuda",
+                     mesh=None):
     """step(batch, generator, patch_coords=None, init_depths=None) ->
     metrics (device scalars: loss, flow_loss, pose_loss, grad_norm): the
     forward over the batch, its backward and one optimizer update of
-    net's parameters in place. net must already lie on device."""
+    net's parameters in place. net must already lie on device.
+
+    With mesh (the (dp, fsdp, tp) `DeviceMesh` of every rank) the step is
+    `_sharded_train_step`'s: net is sharded in place and the optimizer,
+    which must not have stepped yet, is made again over the sharded
+    parameters."""
     net.train()
+    if mesh is not None:
+        return _sharded_train_step(net, tc, optimizer, device, mesh)
 
     def train_step(batch, generator, patch_coords=None, init_depths=None):
         optimizer.zero_grad()
@@ -160,6 +186,78 @@ def build_train_step(net, tc: TrainConfig, optimizer, device="cuda"):
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = optimizer.step()
         return metrics
+
+    return train_step
+
+
+class _ClipLoss(nn.Module):
+    """`clip_loss_fn` over `net` as a module, so that FSDP's hooks gather
+    the parameters around the whole training forward (which calls net's
+    submodules, not net itself)."""
+
+    def __init__(self, net, tc):
+        super().__init__()
+        self.net = net
+        self.tc = tc
+
+    def forward(self, batch, generator, patch_coords, init_depths):
+        return clip_loss_fn(self.net, batch, generator, self.tc,
+                            patch_coords, init_depths)
+
+
+def rank_seed(seed, rank):
+    """The training draws' seed of a rank that is given no draws (ROADMAP
+    R27): seed on rank 0, so one rank draws what one device draws."""
+    return seed + 1_000_003 * rank
+
+
+def _sharded_train_step(net, tc, optimizer, device, mesh):
+    """The FSDP2 step: every rank is given the same global batch (and
+    global patch_coords / init_depths when they are injected) and takes
+    rows [r B / n, (r + 1) B / n) of it; without injected draws it draws
+    its clips' from its own generator. The metrics are the global batch's
+    means, reduced over the ranks; grad_norm the global norm."""
+    from torch.distributed.fsdp import fully_shard
+
+    from . import mesh as mesh_lib
+
+    if optimizer.count:
+        raise ValueError("build_train_step(mesh=): the optimizer has "
+                         "stepped; its moments must be made after the "
+                         "sharding")
+    from torch.distributed.tensor import Shard
+
+    loss_fn = _ClipLoss(net, tc)
+    hsdp = mesh_lib.hsdp_mesh(mesh)
+    dims = mesh_lib.shard_dims(net, hsdp.size(1))
+    placement = {p: Shard(dims[n]) for n, p in net.named_parameters()}
+    fully_shard(loss_fn, mesh=hsdp, shard_placement_fn=placement.get)
+    optimizer.__init__(net.parameters(), optimizer.schedule,
+                       optimizer.weight_decay, optimizer.clip)
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def share(x):
+        return None if x is None else \
+            mesh_lib.batch_sharding({"x": x}, rank=rank, world=world)["x"]
+
+    def train_step(batch, generator, patch_coords=None, init_depths=None):
+        local = mesh_lib.batch_sharding(batch, rank=rank, world=world)
+        optimizer.zero_grad()
+        loss, metrics = loss_fn(batch_to(local, device), generator,
+                                share(patch_coords), share(init_depths))
+        (loss / world).backward()
+        with torch.no_grad():
+            for p in optimizer.params:
+                if p.grad is not None:
+                    p.grad.mul_(world)
+        norm = optimizer.step()
+        keys = list(metrics)
+        means = torch.stack([metrics[k].detach() for k in keys])
+        dist.all_reduce(means)
+        out = dict(zip(keys, (means / world).unbind()))
+        out["grad_norm"] = norm.full_tensor() \
+            if hasattr(norm, "full_tensor") else norm
+        return out
 
     return train_step
 

@@ -322,10 +322,12 @@ def insert_frame(cfg, net, state: SLAMState, inputs: FrameInputs,
 # ---------------------------------------------------------------------------
 
 def _run_update_net(cfg, net, state: SLAMState, net_e, ii, jj, kk, valid, n,
-                    nbr=None, agg_order=None):
+                    nbr=None, agg_order=None, shard=None):
     """reproject -> correlate -> update operator; returns
     (net', delta, weight, coords). n: the frame count, a host integer or
-    a device scalar."""
+    a device scalar. shard: the rows are one rank's share of the edges
+    and the update operator's cross-edge reads go through its
+    collectives (`update_op`)."""
     M = cfg.PATCHES_PER_FRAME
     pmem = cfg.pmem
     fd = feat_dtype(cfg)
@@ -355,7 +357,9 @@ def _run_update_net(cfg, net, state: SLAMState, net_e, ii, jj, kk, valid, n,
         net2, delta, weight = update_forward(
             net.update, net_e.to(fd), ctx.to(fd), corr.to(fd), kk_seg,
             ij_seg, nbr_ix, nbr_jx, valid, cfg.patch_slots + 1,
-            (FW + 1) * (FW + 1) + 1, kk_order=agg_order)
+            (FW + 1) * (FW + 1) + 1, kk_order=agg_order,
+            **({} if shard is None else
+               dict(gather=shard.gather_rows, agg=shard.soft_agg)))
     return net2, delta, weight, coords
 
 
@@ -439,7 +443,7 @@ def retire_and_compact(cfg, state: SLAMState, n_rows=None):
 # ---------------------------------------------------------------------------
 
 def update_op(cfg, net, state: SLAMState, t0, lam=None, n_rows=None,
-              device_gate=False):
+              device_gate=False, shard=None):
     """One update: network + 2 Gauss-Newton iterations over the free
     poses [t0, n) and the first n_rows rows of the edge table (read from
     the edge count when not given). t0: host integer or device scalar;
@@ -453,7 +457,14 @@ def update_op(cfg, net, state: SLAMState, t0, lam=None, n_rows=None,
     retirement: the live patches are those of frames >= n - 1 -
     REMOVAL_WINDOW, all in the patch window) the run-sum is taken and a
     failure only counts into state.faults, which `DPVO` turns into an
-    error."""
+    error.
+
+    With shard (`parallel.infer_shard.EdgeShard`, every rank of its
+    group calling) the update is sharded on edges: the sort and the
+    neighbour links (global row ids) are computed whole on every rank,
+    the network and the BA accumulation on the rank's rows, with the
+    shard's collectives for the neighbour reads, the SoftAggs and BA's
+    sums (`ar=`), so every rank writes the same state."""
     M = cfg.PATCHES_PER_FRAME
     n = state.n_frames
     m_base = _relu(n - (cfg.patch_window_frames - 1)) * M
@@ -473,14 +484,22 @@ def update_op(cfg, net, state: SLAMState, t0, lam=None, n_rows=None,
     okp = okq & (torch.arange(n_rows, device=kk.device) < state.n_edges)
     key = torch.where(okp, q, cfg.patch_slots)
     order = torch.argsort(key, stable=True)
-    table = _group_by_patch(q, okp, cfg.patch_slots, ba_cfg.per_patch_cap,
-                            order=order)
     nbr = neighbors_from_sorted(order, key[order], valid[order],
                                 cfg.patch_slots)
+    net_e = state.net[sl]
+    if shard is not None:
+        # the rank's rows, padded with invalid ones; a shard-local table
+        ii, jj, kk, q, net_e = (shard.rows(a) for a in (ii, jj, kk, q, net_e))
+        valid, okp = shard.rows(valid, False), shard.rows(okp, False)
+        nbr = tuple(shard.rows(a, -1) for a in nbr)
+        order = None
+    table = _group_by_patch(q, okp, cfg.patch_slots, ba_cfg.per_patch_cap,
+                            order=order)
     # the same sort serves the kk-SoftAgg as run-sums when every live edge
     # is a table member: only then are a patch's live rows one run under it
     agg_order = None
-    if n_rows % RUNSUM_ROWS == 0 and (kk.is_cuda or RUNSUM_ON_CPU):
+    if shard is None and n_rows % RUNSUM_ROWS == 0 and \
+            (kk.is_cuda or RUNSUM_ON_CPU):
         outside = (valid & ~okp).any()
         if device_gate:
             agg_order = order
@@ -489,14 +508,18 @@ def update_op(cfg, net, state: SLAMState, t0, lam=None, n_rows=None,
             agg_order = order
 
     net2, delta, weight, coords = _run_update_net(
-        cfg, net, state, state.net[sl], ii, jj, kk, valid, n, nbr=nbr,
-        agg_order=agg_order)
+        cfg, net, state, net_e, ii, jj, kk, valid, n, nbr=nbr,
+        agg_order=agg_order, shard=shard)
     target = coords[:, P // 2, P // 2, :].float() + delta.float()
     weight = weight.float() * valid[:, None]
     poses, patches = _bundle_adjust_impl(
         state.poses, state.patches, state.intrinsics[0], target, weight,
         1e-4 if lam is None else lam, ii, jj, kk, valid, t0, n, m_base,
-        ba_cfg, patches_est=state.patches_est, patch_table=table)
+        ba_cfg, patches_est=state.patches_est, patch_table=table,
+        ar=None if shard is None else shard.all_reduce)
+    if shard is not None:
+        net2, target, weight = (shard.gather(a, n_rows)
+                                for a in (net2, target, weight))
     state.net[sl] = net2
     state.target[sl] = target
     state.weight[sl] = weight
@@ -631,22 +654,24 @@ def keyframe_and_log(cfg, state: SLAMState, n_rows=None):
     return retire_and_compact(cfg, state, n_rows)
 
 
-def track_and_keyframe(cfg, net, state: SLAMState, n_rows):
+def track_and_keyframe(cfg, net, state: SLAMState, n_rows, shard=None):
     state = append_edges(cfg, state)
     t0 = (state.n_frames - cfg.OPTIMIZATION_WINDOW).clamp(min=1)
-    state = update_op(cfg, net, state, t0, n_rows=n_rows, device_gate=True)
+    state = update_op(cfg, net, state, t0, n_rows=n_rows, device_gate=True,
+                      shard=shard)
     return keyframe_and_log(cfg, state, n_rows)
 
 
 def frame_step(cfg, net, state: SLAMState, inputs: FrameInputs, n_rows,
-               desc_centers=None):
+               desc_centers=None, shard=None):
     """insert + track + keyframe for one steady-state frame, with no host
     read: n_rows is the tier holding the edge count after this frame's
-    append; desc_centers (or None) as `insert_frame` takes them."""
+    append; desc_centers (or None) as `insert_frame` takes them; shard:
+    `update_op`'s."""
     state = insert_frame(cfg, net, state, inputs, initialized=True,
                          desc_centers=desc_centers)
     state.n_frames.add_(1)
-    return track_and_keyframe(cfg, net, state, n_rows)
+    return track_and_keyframe(cfg, net, state, n_rows, shard)
 
 
 def chunk_step(cfg, net, state: SLAMState, chunk, tier_of,

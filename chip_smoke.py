@@ -69,8 +69,11 @@ against CPU at 96x128 with both flows, each frame from the CPU's state).
 Then VONet training on the card: the correlation's backward kernel
 (`kernel_corr_backward`, `csrc/corr_grad.cu`) against autograd through
 the plain version at the full training shape (T = 8, M = 32, 2048 edges,
-fp32 maps of 384x512 frames), with the forward's fp32 instantiation held
-against its plain version there too; one training step on the card
+fp32 maps of 384x512 frames), two calls against each other, its box and
+per-pixel shares per level and a library composition beside it (the
+einsum's backward over pre-gathered windows + `index_add_`), with the
+forward's fp32 instantiation held against its plain version there too;
+one training step on the card
 against the same step on the CPU (`train_step_card_vs_cpu`: loss, every
 parameter's gradient, the parameters after the AdamW step);
 `eval/learn_synth.py`'s recipe from a seed-0 network for TRAIN_LS_STEPS
@@ -480,6 +483,28 @@ def region_bmm_ms(gmap, pyr, coords, kk, jj):
     return lib_ms
 
 
+def window_gather_ms(surf, pyr, coords):
+    """Yardstick for the extract: one torch.gather of every pixel's 8x8
+    window at both levels from the surfaces [E, 2, 9, 16, 16], the index
+    built beforehand (windows that leave their region clamped into it)."""
+    E = surf.shape[0]
+    off = torch.arange(8, device=DEV)
+    index = []
+    for fmap, s in zip(pyr, LEVELS):
+        ys, xs, oy, ox, _, _ = tregion.geometry(coords / s, "x16",
+                                                fmap.shape[1], fmap.shape[2])
+        r = (ys - oy[:, None])[..., None] + off
+        c = (xs - ox[:, None])[..., None] + off
+        index.append((r.clamp(0, 15)[..., :, None] * 16 +
+                      c.clamp(0, 15)[..., None, :]).reshape(E, 9, 64))
+    index = torch.stack(index, 1)
+    src = surf.reshape(E, 2, 9, 256)
+    ms = time_ms(lambda: torch.gather(src, 3, index), reps=5, warmup=1)
+    del index
+    torch.cuda.empty_cache()
+    return ms
+
+
 def map_positions(fmap, jj, y0, x0, h, w):
     """Rectangles of h x w positions of fmap [F, H, W, C] at (jj, y0, x0):
     (distinct in-map positions they cover, in-map positions summed over
@@ -819,6 +844,8 @@ def kernel_region_split(gen):
                           reps=3, warmup=1)
         lib_s = region_bmm_ms(gmap, pyr, coords, kk, jj) \
             if spread == 1.0 else None
+        lib_x = window_gather_ms(surf, pyr, coords) if spread == 1.0 \
+            else None
         b_s, flops_s = surfaces_work(*args, surf)
         b_x, flops_x = extract_work(*args, surf, out, spill)
         r_s = dict(name="corr_region_surfaces", route="cuda",
@@ -830,13 +857,15 @@ def kernel_region_split(gen):
                    source=REGION_SOURCE, replaces=f"{PALLAS_CORR}:230",
                    max_abs_err=err_x, ms=ms_x, ms_back_to_back=b2b_x,
                    plain_ms=plain_x,
-                   **bound(b_x, flops_x, FP32_FLOPS), library_ms=None)
+                   **bound(b_x, flops_x, FP32_FLOPS), library_ms=lib_x)
         for r, b, f, extra in (
                 (r_s, b_s, flops_s, dict(
                     ms_back_to_back_edges_grouped_by_jj=b2b_s_grouped,
                     ms_back_to_back_zero_fill_surfaces=store_ms,
                     library="torch.bmm over pre-gathered regions")),
-                (r_x, b_x, flops_x, {})):
+                (r_x, b_x, flops_x, dict(
+                    library="torch.gather of the 8x8 windows from the "
+                            "surfaces, index built beforehand"))):
             emit("kernels", shapes="default", E=E_KERNEL,
                  pixel_spacing_px=spread, spill_edges=n_spill,
                  spill_flags_match_plain=same_spill, tol_abs=TOL_CORR_ABS,
@@ -1870,6 +1899,13 @@ GRAD_SOURCE = "wild_video_3d_reconstruction_torch/csrc/corr_grad.cu"
 GRAD_REPLACES = ("none: XLA's gradient of "
                  "wild_video_3d_reconstruction_tpu/ops/corr.py:115 "
                  "(patch_corr_pyramid)")
+# the backward's first design (a warp per edge and pixel, scalar fp32
+# atomics), its per-launch time at this phase's shape as PERF.md section 6
+# records it (NVIDIA H100 80GB HBM3, 700.00 W); printed for the reader,
+# not measured here
+GRAD_FIRST_DESIGN_MS = 1.090
+GRAD_FIRST_DESIGN = ("a warp per (edge, pixel) with scalar atomics, NVIDIA "
+                     "H100 80GB HBM3, 700.00 W, PERF.md section 6")
 # trainer.train's default TrainConfig(frames=8, patches=32, steps=8)
 TRAIN_FULL = TrainConfig(frames=8, patches=32, steps=8)
 TRAIN_FULL_BATCH = 4
@@ -1947,6 +1983,65 @@ def window_classes(pyr, coords, valid):
     return out
 
 
+def window_backward_library_ms(gmap, pyr, coords, kk, jj, valid):
+    """Yardstick for the correlation backward, a composition of library
+    calls: per level, the backward of the einsum of the plain version over
+    the valid edges' 8x8 windows gathered beforehand (fp32) for a given
+    window gradient, plus one index_add_ of the window gradients into the
+    map (positions off the map into a spare row)."""
+    v = valid.bool()
+    c_v, k_v, j_v = coords[v], kk[v].long(), jj[v].long()
+    E = c_v.shape[0]
+    g = gmap[k_v].permute(0, 2, 3, 1).reshape(E, 9, -1).requires_grad_()
+    gen = torch.Generator().manual_seed(1)   # not the script's draws
+    off = torch.arange(8, device=DEV)
+    lib_ms = 0.0
+    for fmap, s in zip(pyr, LEVELS):
+        F_, H, W, C = fmap.shape
+        ys, xs = tcorr.window_starts(c_v / s)
+        yy, xx = ys[..., None] + off, xs[..., None] + off
+        inb = ((yy >= 0) & (yy < H))[..., :, None] & \
+            ((xx >= 0) & (xx < W))[..., None, :]
+        flat = (j_v * H * W)[:, None, None, None] + \
+            yy.clamp(0, H - 1)[..., :, None] * W + \
+            xx.clamp(0, W - 1)[..., None, :]
+        flat = torch.where(inb, flat, F_ * H * W).reshape(-1)
+        table = torch.cat([fmap.reshape(-1, C), fmap.new_zeros(1, C)])
+        win = table[flat].reshape(E, 9, 64, C).requires_grad_()
+        del table
+        with torch.enable_grad():
+            corr = torch.einsum("epwc,epc->epw", win, g)
+        dc = torch.randn(E, 9, 64, generator=gen).to(DEV)
+        grad_map = torch.zeros(F_ * H * W + 1, C, device=DEV)
+
+        def run():
+            g_win, _ = torch.autograd.grad(corr, (win, g), dc,
+                                           retain_graph=True)
+            grad_map.index_add_(0, flat, g_win.reshape(-1, C))
+
+        lib_ms += time_ms(run, reps=5, warmup=1)
+        del win, corr, grad_map, flat
+    torch.cuda.empty_cache()
+    return lib_ms
+
+
+def backward_plan_shares(pyr, coords, valid):
+    """Per level, the backward kernel's plan over the valid edges' pixels
+    (`box_plan`): the shares taken from the staged box, per pixel and off
+    the map, and the share of edges with a per-pixel pixel."""
+    v = valid.bool()
+    out = {}
+    for (fmap, s), name in zip(zip(pyr, LEVELS), ("level1", "level2")):
+        cls, _ = box_plan(coords[v] / s, fmap.shape[1], fmap.shape[2])
+        n = cls.numel()
+        out[name] = dict(box=int((cls == 1).sum()) / n,
+                         per_pixel=int((cls == 2).sum()) / n,
+                         off=int((cls == 0).sum()) / n,
+                         edges_with_per_pixel=int((cls == 2).any(1).sum()) /
+                         cls.shape[0])
+    return out
+
+
 def kernel_corr_backward(gen):
     """csrc/corr_grad.cu against autograd through the plain version at the
     full training shape; the forward's fp32 instantiation against its
@@ -1988,6 +2083,7 @@ def kernel_corr_backward(gen):
     plain_ms = time_ms(lambda: torch.autograd.grad(
         plain_out, leaves, go, retain_graph=True), reps=5, warmup=1)
     del plain_out, leaves, plain, again
+    lib_ms = window_backward_library_ms(gmap, pyr, coords, kk, jj, valid)
     n_bytes, flops = corr_work(gmap, pyr, coords, kk, jj, valid, *grads)
     n_bytes += int(valid.sum()) * 882 * 4          # grad_out's valid rows
     row = dict(
@@ -1995,10 +2091,15 @@ def kernel_corr_backward(gen):
         replaces=GRAD_REPLACES, max_abs_err=abs_err, ms=ms,
         ms_back_to_back=ms_b2b, plain_ms=plain_ms,
         # 4 fp32 flops per channel and in-map window position (SIMT)
-        **bound(n_bytes, 2 * flops, FP32_FLOPS), library_ms=None)
+        **bound(n_bytes, 2 * flops, FP32_FLOPS), library_ms=lib_ms)
     emit("kernel_corr_backward", E=E, live_edges=int(valid.sum()),
          fmap1=list(fmap1.shape), fmap2=list(fmap2.shape),
-         windows=window_classes(pyr, coords, valid), rel_err=rel,
+         windows=window_classes(pyr, coords, valid),
+         plan=backward_plan_shares(pyr, coords, valid),
+         library="composition: autograd of torch.einsum over pre-gathered "
+                 "fp32 windows + index_add_ into the maps, both levels",
+         first_design_ms=GRAD_FIRST_DESIGN_MS,
+         first_design=GRAD_FIRST_DESIGN, rel_err=rel,
          tol_rel=TOL_CORR_GRAD_REL, two_calls_rel_diff=rerun, finite=finite,
          bytes=n_bytes, flops=2 * flops, forward_fp32_rel_err=fwd_rel,
          forward_fp32_ms=fwd_ms, tol_forward_fp32_rel=TOL_CORR_FP32_REL,

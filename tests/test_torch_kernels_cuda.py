@@ -503,14 +503,65 @@ def test_corr_box_edge_cases(cuda_device, case, entry, dtype):
 TOL_CORR_GRAD_REL = 1e-5
 GRAD_CASES = ("spread", "box_at_capacity", "box_beyond_capacity",
               "mixed_box_per_pixel", "one_edge", "ragged_blocks", "tiny_map",
-              "nan_and_huge_invalid", "all_invalid")
+              "nan_and_huge_invalid", "all_invalid", "kk_major_runs",
+              "one_frame_contention", "level1_spill_level2_box")
+
+
+def kk_major_case(seed, T=6, M=40, H=96, W=128, C=128):
+    """The training order (`train/forward.py:all_pairs_edges`): every patch
+    of T frames into every frame, the T edges of a patch next to each
+    other, i == j dropped. Runs of T = 6 edges share kk and cross the
+    kernel's blocks of 8 edges; compact patches anywhere on the map."""
+    rng = np.random.default_rng(seed)
+    gmap = rng.normal(size=(T * M, C, 3, 3)).astype(np.float32)
+    fmaps = (rng.normal(size=(T, H, W, C)).astype(np.float32),
+             rng.normal(size=(T, H // 4, W // 4, C)).astype(np.float32))
+    kk = np.repeat(np.arange(T * M), T)
+    jj = np.tile(np.arange(T), T * M)
+    valid = np.repeat(np.arange(T), M * T) != jj
+    E = kk.shape[0]
+    cx = rng.uniform(-3.0, W + 3.0, size=E)
+    cy = rng.uniform(-3.0, H + 3.0, size=E)
+    off = np.arange(3) - 1.0
+    x = cx[:, None, None] + off[None, None, :] + np.zeros((E, 3, 3))
+    y = cy[:, None, None] + off[None, :, None] + np.zeros((E, 3, 3))
+    coords = np.stack([x, y], -1).astype(np.float32)
+    return gmap, fmaps, coords, kk, jj, valid
 
 
 def grad_case(case):
     """A backward case: the correlation body's edge cases, the NaN ones
-    on invalid rows only (the rows the training forward drops)."""
+    on invalid rows only (the rows the training forward drops); the
+    training order; every edge into one frame at nearby coordinates (the
+    vector reductions contend on the same positions); and patches that
+    spill the box at level 1 but fit it at level 2."""
     if case == "spread":
         return corr_case(3, E=2048, spread=3.0)
+    if case == "kk_major_runs":
+        return kk_major_case(5)
+    if case == "one_frame_contention":
+        gmap, fmaps, coords, kk, jj, valid = corr_case(
+            9, E=2048, spread=1.0)
+        rng = np.random.default_rng(9)
+        centre = rng.uniform(40.0, 46.0, size=(coords.shape[0], 1, 1, 2))
+        coords = (coords - coords.mean((1, 2), keepdims=True) + centre) \
+            .astype(np.float32)
+        return gmap, fmaps, coords, kk, np.zeros_like(jj), valid
+    if case == "level1_spill_level2_box":
+        # window starts 0, 3, 6 apart at level 1 (a 14 x 14 union, past
+        # the 12 x 12 box), 0 to 2 apart at level 2 (inside it)
+        gmap, fmaps, coords, kk, jj, valid = corr_case(11, E=1024,
+                                                       spread=1.0)
+        rng = np.random.default_rng(11)
+        E = coords.shape[0]
+        grid = np.array([0, 3, 6])
+        off = np.zeros((E, 3, 3, 2), dtype=np.int64)
+        off[..., 0] = grid[None, :, None]
+        off[..., 1] = grid[None, None, :]
+        base = np.stack([rng.integers(8, 96 - 24, E),
+                         rng.integers(8, 128 - 24, E)], -1)
+        coords = _coords_from_offsets(rng, base, off, 1.0)
+        return gmap, fmaps, coords, kk, jj, valid
     if case != "nan_and_huge_invalid":
         return box_case(case)
     gmap, fmaps, coords, kk, jj, valid = box_case("nan_and_huge")
@@ -543,6 +594,34 @@ def test_corr_backward_kernel_matches_autograd(cuda_device, case):
         assert err <= TOL_CORR_GRAD_REL * r.abs().max().item(), (case, err)
     if case == "all_invalid":
         assert not any(bool(leaf.grad.any()) for leaf in leaves)
+    if case == "level1_spill_level2_box":
+        plans = [tcorr.box_plan(c.cpu() / s, f.shape[1], f.shape[2])[0]
+                 for f, s in zip(pyr, tcorr.LEVELS)]
+        assert bool((plans[0] == 2).any(1).all())
+        assert not bool((plans[1] == 2).any())
+
+
+@pytest.mark.parametrize("case", ["spread", "kk_major_runs",
+                                  "one_frame_contention"])
+def test_corr_backward_kernel_two_calls_agree(cuda_device, case):
+    """Two launches on the same inputs: the vector reductions add in the
+    order the warps arrive, so the gradients may differ in the last bits,
+    within 1e-5 of each one's largest magnitude (the tolerance against
+    the plain version)."""
+    g, pyr, c, k, j, v = _to_dev(grad_case(case), cuda_device,
+                                 torch.float32)
+    rng = np.random.default_rng(2)
+    go = torch.from_numpy(rng.normal(size=(c.shape[0], 882))
+                          .astype(np.float32)).to(cuda_device)
+    n0 = _native.LAUNCHES["corr_pyramid_backward"]
+    first = tcorr.corr_pyramid_backward(go, g, pyr, c, k, j, v)
+    second = tcorr.corr_pyramid_backward(go, g, pyr, c, k, j, v)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["corr_pyramid_backward"] == n0 + 2
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and a.abs().max().item() > 0
+        err = (a - b).abs().max().item()
+        assert err <= TOL_CORR_GRAD_REL * a.abs().max().item(), (case, err)
 
 
 def test_corr_gradient_rejects_what_it_cannot_take(cuda_device):
